@@ -1,0 +1,100 @@
+"""Policy-value residual network (the port of models/policy_value.py).
+
+Layer for layer the Flax net: a conv->BN->relu stem, ``depth`` residual
+blocks of (conv->BN->relu, conv->BN) plus a 1x1 conv->BN projection of the
+block input, added then relu'd; a policy head (1x1 conv, 2 filters ->
+flatten -> dense to logits) and a value head (1x1 conv, 1 filter -> flatten
+-> dense(value_hidden) -> relu -> dense(1) -> tanh).
+
+Input is NHWC like the JAX net, and both heads flatten in NHWC order so the
+Flax dense kernels carry over unchanged (models/convert.py). BatchNorm uses
+Flax's ``epsilon=1e-3``.
+
+``cfg.compute_dtype == "bfloat16"`` runs the trunk, the head convs and the
+value hidden layer under bf16 autocast, and the two final dense layers in
+float32 on float32 inputs, which is where the Flax net keeps float32.
+Autocast rounds at other points than Flax's bf16 BatchNorm, so bf16 outputs
+agree with JAX only to a looser bound (tests/test_torch_port_net.py).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from custom_alphazero_tpu_torch.config import ModelConfig
+
+
+class ConvBlock(nn.Module):
+    """conv -> BN -> optional relu."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, kernel, padding=kernel // 2)
+        self.bn = nn.BatchNorm2d(cout, eps=1e-3)
+
+    def forward(self, x, activate: bool = True):
+        x = self.bn(self.conv(x))
+        return torch.relu(x) if activate else x
+
+
+class ResidualBlock(nn.Module):
+    """Two 3x3 convs + 1x1 projected identity, add, relu."""
+
+    def __init__(self, filters: int):
+        super().__init__()
+        self.conv1 = ConvBlock(filters, filters)
+        self.conv2 = ConvBlock(filters, filters)
+        self.proj = ConvBlock(filters, filters, kernel=1)
+
+    def forward(self, x):
+        y = self.conv2(self.conv1(x), activate=False)
+        return torch.relu(self.proj(x, activate=False) + y)
+
+
+class PolicyValueNet(nn.Module):
+    """NHWC observations -> (policy logits (B, A) float32, value (B,))."""
+
+    def __init__(self, num_actions: int, cfg: ModelConfig = ModelConfig(),
+                 in_channels: int = 4, board_hw: tuple = (6, 7)):
+        super().__init__()
+        if cfg.compute_dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"compute_dtype {cfg.compute_dtype!r}")
+        self.cfg = cfg
+        h, w = board_hw
+        self.stem = ConvBlock(in_channels, cfg.filters)
+        self.blocks = nn.ModuleList(
+            [ResidualBlock(cfg.filters) for _ in range(cfg.depth)]
+        )
+        self.policy_conv = ConvBlock(cfg.filters, cfg.policy_filters, 1)
+        self.policy_dense = nn.Linear(cfg.policy_filters * h * w, num_actions)
+        self.value_conv = ConvBlock(cfg.filters, cfg.value_filters, 1)
+        self.value_dense1 = nn.Linear(cfg.value_filters * h * w,
+                                      cfg.value_hidden)
+        self.value_dense2 = nn.Linear(cfg.value_hidden, 1)
+
+    def forward(self, obs_nhwc: torch.Tensor):
+        with torch.autocast(
+            obs_nhwc.device.type, dtype=torch.bfloat16,
+            enabled=self.cfg.compute_dtype == "bfloat16",
+        ):
+            x = self.stem(obs_nhwc.permute(0, 3, 1, 2))  # NHWC -> NCHW
+            for block in self.blocks:
+                x = block(x)
+            p = self.policy_conv(x).permute(0, 2, 3, 1).flatten(1)
+            v = self.value_conv(x).permute(0, 2, 3, 1).flatten(1)
+            v = torch.relu(self.value_dense1(v))
+        logits = self.policy_dense(p.float())
+        value = torch.tanh(self.value_dense2(v.float()))[:, 0]
+        return logits, value
+
+
+def masked_policy(logits: torch.Tensor, legal_mask: torch.Tensor):
+    """Softmax over legal actions only; uniform if no action is legal."""
+    neg_inf = torch.finfo(logits.dtype).min
+    masked = torch.where(legal_mask, logits, neg_inf)
+    return torch.where(
+        legal_mask.any(dim=-1, keepdim=True),
+        torch.softmax(masked, dim=-1),
+        torch.full_like(logits, 1.0 / logits.shape[-1]),
+    )

@@ -1,0 +1,61 @@
+"""Bounded-iteration Gamma sampling for root Dirichlet noise.
+
+The port of ops/rng.py::safe_gamma, on torch's own random stream (it does
+not replay JAX's threefry bits; the parity tests inject JAX's draws
+instead, and this sampler is tested in distribution):
+
+- alpha == 1: the exact exponential -log U, U in [tiny, 1) — the Connect-4
+  production regime (dirichlet_alpha=1.0).
+- alpha >= 1 otherwise: Marsaglia-Tsang with a fixed number of candidate
+  (normal, uniform) pairs, an accepted one taken; a miss (probability
+  <= 0.05^ATTEMPTS) falls back to d = alpha - 1/3.
+- alpha < 1: Gamma(alpha + 1) * U^(1/alpha) (the boosting lemma).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+ATTEMPTS = 8
+
+
+def _uniform(generator, shape, device) -> torch.Tensor:
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.rand(shape, generator=generator, device=device)
+    return u.clamp_min(tiny)
+
+
+def safe_gamma(generator: torch.Generator, alpha: float, shape,
+               device) -> torch.Tensor:
+    """float32 Gamma(alpha) draws of ``shape`` from ``generator``."""
+    alpha = float(alpha)
+    if alpha <= 0.0:
+        raise ValueError(f"alpha={alpha} must be positive")
+    shape = tuple(shape)
+    if alpha == 1.0:
+        return -torch.log(_uniform(generator, shape, device))
+
+    boost = alpha < 1.0
+    a = alpha + 1.0 if boost else alpha
+    d = a - 1.0 / 3.0
+    c = 1.0 / math.sqrt(9.0 * d)
+    tiny = torch.finfo(torch.float32).tiny
+    g = torch.full(shape, d, dtype=torch.float32, device=device)
+    # The last accepted candidate wins; candidates are i.i.d., so that has
+    # the law of the first accepted one.
+    for _ in range(ATTEMPTS):
+        x = torch.randn(shape, generator=generator, device=device)
+        u = _uniform(generator, shape, device)
+        t = 1.0 + c * x
+        v = t * t * t
+        ok = (v > 0.0) & (
+            torch.log(u)
+            < 0.5 * x * x + d - d * v + d * torch.log(v.clamp_min(tiny))
+        )
+        g = torch.where(ok, d * v, g)
+    if boost:
+        ub = _uniform(generator, shape, device)
+        g = g * torch.exp(torch.log(ub) / alpha)
+    return g

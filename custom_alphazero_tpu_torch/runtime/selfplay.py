@@ -1,0 +1,204 @@
+"""Lockstep self-play generation on the card.
+
+The port of runtime/selfplay.py::make_selfplay_fn for the fused search
+path, plain and continuous modes. A Python loop steps a batch of games in
+lockstep: per ply one fused search (ops/fused_mcts_v2.py), a move sampled
+per game, and the samples recorded under a liveness mask. Sample semantics
+are the JAX ones:
+
+- pi = root child visits normalised; from ``fullmove >= greedy_from_move``
+  the played distribution and the stored target are a one-hot argmax.
+- The recorded observation is the one before the move.
+- z: with result r for the last mover and distance d from the end,
+  z_t = r * (-1)^d * discount^d; continuous mode builds it per completed
+  segment, back to front, and drops each slot's trailing unfinished game.
+- Draw games can be excluded from the samples.
+
+Moves are sampled from pi with the caller's ``torch.Generator`` (greedy rows
+are one-hot, so sampling them is the argmax).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Tuple
+
+import torch
+
+from custom_alphazero_tpu_torch.config import (
+    MCTSConfig,
+    SelfPlayConfig,
+    resolve_device,
+)
+from custom_alphazero_tpu_torch.envs.connect_n import ConnectN
+from custom_alphazero_tpu_torch.ops import fused_mcts_v2
+from custom_alphazero_tpu_torch.runtime.evaluate import EvaluateFn
+
+
+class SelfPlayBatch(NamedTuple):
+    """Flattened (T*B) sample arrays, time-major, + validity mask."""
+
+    obs: torch.Tensor     # (T*B, H, W, C)
+    policy: torch.Tensor  # (T*B, A)
+    value: torch.Tensor   # (T*B,)
+    valid: torch.Tensor   # (T*B,) bool: live ply of a non-excluded game
+
+
+class SelfPlayStats(NamedTuple):
+    games: torch.Tensor
+    plies: torch.Tensor
+    wins_first_mover: torch.Tensor
+    wins_second_mover: torch.Tensor
+    draws: torch.Tensor
+    mean_game_length: torch.Tensor
+
+
+GenerateFn = Callable[[EvaluateFn, torch.Generator, int],
+                      Tuple[SelfPlayBatch, SelfPlayStats]]
+
+
+def make_selfplay_fn(env: ConnectN, mcts_cfg: MCTSConfig,
+                     sp_cfg: SelfPlayConfig, max_plies: int,
+                     device=None, fused: bool = None) -> GenerateFn:
+    """Build ``generate(evaluate_fn, generator, batch_size)``.
+
+    Only the fused search is ported: ``fused=False``, an env/config the
+    fused search does not support, subtree reuse and Gumbel search raise
+    NotImplementedError."""
+    if mcts_cfg.reuse_tree:
+        raise NotImplementedError(
+            "mcts.reuse_tree is not ported yet (ROADMAP.md queue 1, "
+            "'Subtree reuse')"
+        )
+    if mcts_cfg.use_gumbel:
+        raise NotImplementedError(
+            "mcts.use_gumbel is not ported yet (ROADMAP.md queue 1, "
+            "'Gumbel search')"
+        )
+    if fused is False or not fused_mcts_v2.supports(env, mcts_cfg):
+        raise NotImplementedError(
+            "only the fused Connect-N search is ported; the general "
+            "MCTS.search is not (ROADMAP.md queue 1, 'General search path')"
+        )
+    device = resolve_device(device)
+    search = fused_mcts_v2.FusedConnectNSearchV2(env, mcts_cfg, device)
+    num_actions = env.num_actions
+
+    def generate(evaluate_fn: EvaluateFn, generator: torch.Generator,
+                 batch_size: int):
+        fresh = env.init(batch_size, device)
+        states = fresh
+        obs_seq, pi_seq, active_seq, reward_seq, done_seq, mv_seq = (
+            [], [], [], [], [], []
+        )
+        for _ in range(max_plies):
+            active = ~env.is_terminal(states)
+            obs = env.observe(states)
+            mv = states.fullmove
+            root_visits, _ = search.search_root_stats(
+                states, evaluate_fn, generator, mcts_cfg.simulations
+            )
+            visits = root_visits.float()
+            probs = visits / visits.sum(dim=-1, keepdim=True).clamp_min(1.0)
+            greedy = mv >= mcts_cfg.greedy_from_move
+            one_hot = torch.nn.functional.one_hot(
+                visits.argmax(dim=-1), num_actions
+            ).float()
+            pi = torch.where(greedy[:, None], one_hot, probs)
+            first = torch.zeros_like(pi)
+            first[:, 0] = 1.0
+            safe_pi = torch.where(pi.sum(dim=-1, keepdim=True) > 0, pi, first)
+            actions = torch.multinomial(safe_pi, 1, generator=generator)[:, 0]
+
+            next_states, rewards = env.step(states, actions)
+            done = active & env.is_terminal(next_states)
+            if sp_cfg.continuous:
+                next_states = fresh.where(done, next_states)
+            states = next_states
+            obs_seq.append(obs)
+            pi_seq.append(pi)
+            active_seq.append(active)
+            reward_seq.append(rewards)
+            done_seq.append(done)
+            mv_seq.append(mv)
+
+        active_t = torch.stack(active_seq)  # (T, B)
+        reward_t = torch.stack(reward_seq)
+        done_t = torch.stack(done_seq)
+        mv_t = torch.stack(mv_seq)
+        if sp_cfg.continuous:
+            z, valid, stats = _continuous_targets(
+                sp_cfg, active_t, reward_t, done_t, mv_t
+            )
+        else:
+            z, valid, stats = _plain_targets(
+                sp_cfg, batch_size, max_plies, active_t, reward_t
+            )
+        batch = SelfPlayBatch(
+            obs=torch.cat(obs_seq),
+            policy=torch.cat(pi_seq),
+            value=z.reshape(-1).float(),
+            valid=valid.reshape(-1),
+        )
+        return batch, stats
+
+    return generate
+
+
+def _continuous_targets(sp_cfg, active, reward, done, mv):
+    """Per-segment z (back to front) and stats of auto-reset generation."""
+    t_len, bsz = reward.shape
+    z = torch.zeros_like(reward)
+    valid = torch.zeros_like(done)
+    res = torch.zeros_like(reward)
+    z_next = torch.zeros(bsz, device=reward.device)
+    valid_next = torch.zeros(bsz, dtype=torch.bool, device=reward.device)
+    res_next = torch.zeros(bsz, device=reward.device)
+    for t in range(t_len - 1, -1, -1):
+        z_next = torch.where(done[t], reward[t], -sp_cfg.discount * z_next)
+        res_next = torch.where(done[t], reward[t], res_next)
+        valid_next = done[t] | valid_next
+        z[t], valid[t], res[t] = z_next, valid_next, res_next
+    if sp_cfg.exclude_draws:
+        valid = valid & (res != 0)
+    games = done.sum()
+    won_seg = done & (reward > 0)
+    seg_len = torch.where(done, mv + 1, 0)
+    odd_len = done & (seg_len % 2 == 1)
+    stats = SelfPlayStats(
+        games=games.to(torch.int32),
+        plies=active.sum(),
+        wins_first_mover=(won_seg & odd_len).sum(),
+        wins_second_mover=(won_seg & ~odd_len).sum(),
+        draws=(done & ~won_seg).sum(),
+        mean_game_length=seg_len.sum() / games.clamp_min(1).float(),
+    )
+    return z, valid, stats
+
+
+def _plain_targets(sp_cfg, batch_size, max_plies, active, reward):
+    """z with sign flips and discount, and stats of one batch of games."""
+    lengths = active.sum(dim=0)  # (B,); games absorb: a prefix mask
+    # Only a winning final move has a nonzero reward; draws sum to 0.
+    results = reward.sum(dim=0)  # (B,) in {0, 1}
+    t_idx = torch.arange(max_plies, device=reward.device)[:, None]
+    dist = (lengths[None, :] - 1 - t_idx).float()
+    sign = torch.where(dist % 2.0 == 0.0, 1.0, -1.0)
+    z = results[None, :] * sign * torch.pow(
+        torch.tensor(sp_cfg.discount, dtype=torch.float32,
+                     device=reward.device),
+        dist.clamp_min(0.0),
+    )
+    valid = active
+    if sp_cfg.exclude_draws:
+        valid = valid & (results[None, :] != 0)
+    won = results != 0
+    odd_len = lengths % 2 == 1
+    stats = SelfPlayStats(
+        games=torch.tensor(batch_size, dtype=torch.int32),
+        plies=active.sum(),
+        wins_first_mover=(won & odd_len).sum(),
+        wins_second_mover=(won & ~odd_len).sum(),
+        draws=(~won).sum(),
+        mean_game_length=lengths.float().mean(),
+    )
+    return z, valid, stats

@@ -1,0 +1,122 @@
+"""The port's self-play generation against JAX's fused self-play, byte for
+byte, in plain and continuous mode.
+
+Moves are made deterministic with ``greedy_from_move=0`` and no root noise
+(torch cannot replay JAX's sampling stream). The dyadic evaluator also
+depends on the game's row, so the games of a batch differ."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from custom_alphazero_tpu.config import ConnectNConfig as JaxConnectNConfig
+from custom_alphazero_tpu.config import MCTSConfig as JaxMCTSConfig
+from custom_alphazero_tpu.config import SelfPlayConfig as JaxSelfPlayConfig
+from custom_alphazero_tpu.envs.connect_n import ConnectN as JaxConnectN
+from custom_alphazero_tpu.runtime.selfplay import (
+    make_selfplay_fn as jax_make_selfplay_fn,
+)
+from custom_alphazero_tpu_torch.config import (
+    ConnectNConfig,
+    MCTSConfig,
+    SelfPlayConfig,
+)
+from custom_alphazero_tpu_torch.envs.connect_n import ConnectN
+from custom_alphazero_tpu_torch.runtime.selfplay import make_selfplay_fn
+
+
+def _jax_row_dyadic(num_actions):
+    def evaluate(obs):
+        stones = jnp.sum(obs[..., 1] + obs[..., 2], axis=(1, 2))
+        row = jnp.arange(obs.shape[0], dtype=jnp.float32)[:, None]
+        a = jnp.arange(num_actions, dtype=jnp.float32)[None, :]
+        probs = (1.0 + jnp.mod(stones[:, None] + a + row, 4.0)) / 16.0
+        return probs, (stones - 2.0 * jnp.mod(row[:, 0], 3.0)) / 64.0
+
+    return evaluate
+
+
+def _torch_row_dyadic(num_actions):
+    def evaluate(obs):
+        stones = (obs[..., 1] + obs[..., 2]).sum(dim=(1, 2))
+        row = torch.arange(obs.shape[0], dtype=torch.float32)[:, None]
+        a = torch.arange(num_actions, dtype=torch.float32)[None, :]
+        probs = (1.0 + torch.remainder(stones[:, None] + a + row, 4.0)) / 16.0
+        return probs, (stones - 2.0 * torch.remainder(row[:, 0], 3.0)) / 64.0
+
+    return evaluate
+
+
+@pytest.mark.parametrize("continuous", [False, True],
+                         ids=["plain", "continuous"])
+def test_selfplay_matches_jax(continuous):
+    batch, max_plies = 8, 20
+    mcts = dict(simulations=10, greedy_from_move=0)
+    sp = dict(continuous=continuous, discount=0.5,
+              exclude_draws=not continuous)
+    jenv = JaxConnectN(JaxConnectNConfig(width=5, height=4, n=3))
+    jgen = jax_make_selfplay_fn(jenv, JaxMCTSConfig(**mcts),
+                                JaxSelfPlayConfig(**sp), max_plies,
+                                fused=True)
+    ref_batch, ref_stats = jax.jit(
+        lambda r: jgen(_jax_row_dyadic(5), r, batch)
+    )(jax.random.PRNGKey(0))
+
+    env = ConnectN(ConnectNConfig(width=5, height=4, n=3))
+    gen = make_selfplay_fn(env, MCTSConfig(**mcts), SelfPlayConfig(**sp),
+                           max_plies, device="cpu")
+    got_batch, got_stats = gen(_torch_row_dyadic(5),
+                               torch.Generator().manual_seed(0), batch)
+
+    for name, got, want in zip(got_batch._fields, got_batch, ref_batch):
+        want = np.asarray(want)
+        got = got.numpy()
+        assert got.shape == want.shape, name
+        assert got.dtype == want.dtype, name
+        assert got.tobytes() == want.tobytes(), name
+    for name, got, want in zip(got_stats._fields, got_stats, ref_stats):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want),
+                                      err_msg=name)
+    assert int(got_stats.games) > 0
+    assert len(set(map(tuple, got_batch.policy[:batch].tolist()))) > 1
+
+
+def test_selfplay_samples_noise_on():
+    """Continuous generation with root noise and sampled moves (no JAX
+    counterpart for torch's stream): well-formed samples."""
+    env = ConnectN(ConnectNConfig())
+    cfg = MCTSConfig(simulations=8, greedy_from_move=4, use_dirichlet=True,
+                     dirichlet_alpha=1.0)
+    gen = make_selfplay_fn(env, cfg, SelfPlayConfig(continuous=True,
+                                                    exclude_draws=False),
+                           24, device="cpu")
+    samples, stats = gen(_torch_row_dyadic(7),
+                         torch.Generator().manual_seed(1), 6)
+    assert samples.obs.shape == (24 * 6, 6, 7, 4)
+    torch.testing.assert_close(samples.policy.sum(-1),
+                               torch.ones(24 * 6))
+    assert set(samples.value[samples.valid].tolist()) <= {-1.0, 0.0, 1.0}
+    assert int(stats.games) == int(stats.wins_first_mover
+                                   + stats.wins_second_mover + stats.draws)
+    assert int(stats.plies) == 24 * 6
+
+
+@pytest.mark.parametrize("override, item", [
+    (dict(reuse_tree=True), "Subtree reuse"),
+    (dict(use_gumbel=True), "Gumbel search"),
+    (dict(max_nodes=64), "General search path"),
+])
+def test_unported_modes_raise(override, item):
+    env = ConnectN(ConnectNConfig())
+    with pytest.raises(NotImplementedError, match=item):
+        make_selfplay_fn(env, MCTSConfig(**override), SelfPlayConfig(), 4,
+                         device="cpu")
+
+
+def test_non_fused_request_raises():
+    env = ConnectN(ConnectNConfig())
+    with pytest.raises(NotImplementedError, match="General search path"):
+        make_selfplay_fn(env, MCTSConfig(), SelfPlayConfig(), 4,
+                         device="cpu", fused=False)
