@@ -9,9 +9,10 @@ PyTorch built for CUDA:
 Phases (any failed check raises and exits non-zero):
 
 1. Device: CUDA present; the card's name and power limit (nvidia-smi).
-2. Build: nvcc builds every kernel of the path from the repo's sources into
-   build/kernels/.
-3. Kernel vs plain version: whole searches (B=1024, 250 simulations, root
+2. Build: nvcc builds both wave kernels, K1 (csrc/fused_mcts_v2.cu) and K2
+   (csrc/fused_mcts.cu), from the repo's sources into build/kernels/, in
+   parallel.
+3. K1 vs its plain version: whole searches (B=1024, 250 simulations, root
    noise on, a dyadic evaluator) from random positions at 7x6 n=4 and 5x4
    n=3, through the CUDA wave kernel and ``wave_reference`` side by side;
    all 12 carry arrays and the leaf board must be bit-equal after every
@@ -24,7 +25,18 @@ Phases (any failed check raises and exits non-zero):
    the trained weights in bf16; every search wave must go through the
    kernel and none through the plain version. Prints simulations/s, the
    kernel / net / rest split and the sample checks.
-6. The kernels' JSON line, the card's line, and the result line.
+6. K2 vs its plain version, as phase 3.
+7. Three searches agree: K2 (``FusedConnectNSearch``), K1
+   (``FusedConnectNSearchV2``) and the general ``MCTS.search`` from the same
+   1024 random c4-r5 positions, 250 simulations, root noise from one
+   generator seed each: with the dyadic evaluator, bit-equal root visits
+   and value sums; with the trained bf16 net (cuDNN deterministic), K2 and
+   K1 equal. Every K2 wave must go through its kernel. Prints each
+   search's wall time per wave.
+8. General-path self-play: ``make_selfplay_fn(fused=False)`` and the fused
+   path at the phase-5 configuration, 4 plies each from one generator
+   seed: identical samples and stats. Prints sims/s of both.
+9. The kernels' JSON line, the card's line, and the result line.
 """
 
 from __future__ import annotations
@@ -43,7 +55,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak
 BATCH = 1024
 SIMS = 250
 MAX_PLIES = 42
+GENERAL_PLIES = 4  # phase 8: plies of each self-play path
 SNAPSHOT_LAUNCHES = 10
+# Root noise of the c4-r5 configuration (artifacts/c4-r5/config.json).
+NOISE = dict(use_dirichlet=True, dirichlet_alpha=1.0, dirichlet_fraction=0.25,
+             c_puct=1.5)
 
 
 def log(msg: str) -> None:
@@ -83,7 +99,7 @@ def random_positions(env, batch: int, max_plies: int, gen, device):
 
 
 def leaf_depth(carry, leaf):
-    """(B,) tree depth of each game's ``leaf`` node."""
+    """(B,) tree depth of each game's ``leaf`` node (either carry layout)."""
     parent = carry.parent
     batch = torch.arange(parent.shape[0], device=parent.device)
     node = leaf[:, 0].long()
@@ -113,21 +129,28 @@ def touched_bytes(prev_depth, new_depth, actions: int) -> int:
     return int(4 * per_game.sum().item())
 
 
-def kernel_vs_plain(env, cfg, states, sims, gen, timed: bool):
-    """Lockstep searches through the kernel and the plain version; returns
-    (max_abs_err, kernel_ms, plain_ms, bound_ms, carry_bound_ms)."""
-    from custom_alphazero_tpu_torch.ops import fused_mcts_v2 as fm
+def kernel_vs_plain(env, cfg, states, sims, gen, timed: bool,
+                    kernel: str = "K1"):
+    """Lockstep searches through kernel ``kernel`` (K1 or K2) and its plain
+    version; returns (max_abs_err, kernel_ms, plain_ms, bound_ms,
+    carry_bound_ms)."""
+    from custom_alphazero_tpu_torch.ops import fused_mcts, fused_mcts_v2
 
     device = states.board.device
     bsz, a = states.board.shape[0], env.num_actions
-    search = fm.FusedConnectNSearchV2(env, cfg, device)
+    fm = fused_mcts if kernel == "K2" else fused_mcts_v2
+    search = (fused_mcts.FusedConnectNSearch if kernel == "K2"
+              else fused_mcts_v2.FusedConnectNSearchV2)(env, cfg, device)
     geom = search.geometry(sims)
     evaluate = dyadic_evaluate(a)
-    root_board = fm.padded_board(states.board)
+    # K2 takes (B, 8, 8) boards, K1 (B, 64): the same bytes.
+    root_board = fused_mcts_v2.padded_board(states.board)
+    if kernel == "K2":
+        root_board = root_board.view(bsz, 8, 8)
     carry_k = fm.init_carry(env, states, sims + 1)
     carry_p = fm.Carry(*(t.clone() for t in carry_k))
     root_live = ~env.is_terminal(states)
-    leaf_board = torch.zeros((bsz, 64), device=device)
+    leaf_board = torch.zeros_like(root_board)
     probs = torch.zeros((bsz, a), device=device)
     value = torch.zeros((bsz, 1), device=device)
     root_prior = torch.zeros((bsz, a), device=device)
@@ -138,8 +161,8 @@ def kernel_vs_plain(env, cfg, states, sims, gen, timed: bool):
     for w in range(sims + 1):
         gamma = search._mcts.wave_noise(gen, bsz, device) if w < sims else None
         renormed, mixed, root_prior = search.wave_inputs(
-            w, sims, leaf_board, carry_k.leaf_terminal, probs, root_prior,
-            root_live, gamma,
+            w, sims, leaf_board.view(bsz, 64), carry_k.leaf_terminal, probs,
+            root_prior, root_live, gamma,
         )
         inputs = (mixed.contiguous(), renormed, value, root_board)
         if timed and w in snap_waves:
@@ -159,8 +182,8 @@ def kernel_vs_plain(env, cfg, states, sims, gen, timed: bool):
                 )
             max_err = max(max_err, (k_t - p_t).abs().max().item())
         if w < sims:
-            probs, v = evaluate(fm.observe_board(leaf_board, env.cfg.height,
-                                                 env.cfg.width))
+            probs, v = evaluate(fused_mcts_v2.observe_board(
+                leaf_board, env.cfg.height, env.cfg.width))
             value = v.reshape(bsz, 1).contiguous()
     if not timed:
         return max_err, None, None, None, None
@@ -199,6 +222,134 @@ def kernel_vs_plain(env, cfg, states, sims, gen, timed: bool):
     mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
     return (max_err, mean(kernel_ms), mean(plain_ms), mean(bound_ms),
             2 * carry_bytes / HBM_BYTES_PER_S * 1e3)
+
+
+def kernel_phase(kernel: str, gen, device):
+    """Phases 3 and 6: ``kernel_vs_plain`` at 7x6 n=4 (timed) and 5x4 n=3;
+    returns the 7x6 (max_abs_err over both, kernel_ms, plain_ms, bound_ms,
+    carry_bound_ms)."""
+    from custom_alphazero_tpu_torch.config import ConnectNConfig, MCTSConfig
+    from custom_alphazero_tpu_torch.envs.connect_n import ConnectN
+
+    results = {}
+    for geometry, timed in ((dict(width=7, height=6, n=4), True),
+                            (dict(width=5, height=4, n=3), False)):
+        env = ConnectN(ConnectNConfig(**geometry))
+        cfg = MCTSConfig(simulations=SIMS, **NOISE)
+        states = random_positions(env, BATCH, 20, gen, device)
+        t0 = time.perf_counter()
+        results[geometry["width"]] = kernel_vs_plain(env, cfg, states, SIMS,
+                                                     gen, timed, kernel)
+        log(f"{kernel} vs plain {geometry}: bit-equal on all 13 arrays at "
+            f"every wave of a B={BATCH}, {SIMS}-simulation search "
+            f"({time.perf_counter() - t0:.1f} s)")
+    max_err, kernel_ms, plain_ms, bound_ms, carry_bound_ms = results[7]
+    max_err = max(max_err, results[5][0])
+    log(f"{kernel} wave at B={BATCH}, N={SIMS + 1}, 7x6: kernel "
+        f"{kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, touched-bytes bound "
+        f"{bound_ms:.5f} ms, carry-bytes bound {carry_bound_ms:.4f} ms")
+    return max_err, kernel_ms, plain_ms, bound_ms, carry_bound_ms
+
+
+def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits (float32 compared as int32 views)."""
+    if x.dtype != y.dtype or x.shape != y.shape:
+        return False
+    if x.dtype == torch.float32:
+        x, y = x.view(torch.int32), y.view(torch.int32)
+    return torch.equal(x, y)
+
+
+def three_searches(env, states, evaluate, label: str, names) -> int:
+    """Phase 7: the named searches (K2, K1, general) from ``states`` with
+    one generator seed each; their root visits and value sums must be
+    bit-equal. Returns K2's kernel launches, all of them counted."""
+    from custom_alphazero_tpu_torch.config import MCTSConfig
+    from custom_alphazero_tpu_torch.ops import fused_mcts
+    from custom_alphazero_tpu_torch.ops.fused_mcts_v2 import (
+        FusedConnectNSearchV2,
+    )
+    from custom_alphazero_tpu_torch.search.mcts import MCTS
+
+    cfg = MCTSConfig(simulations=SIMS, **NOISE)
+    device = states.board.device
+    stats, k2_launches = {}, 0
+    for name in names:
+        gen = torch.Generator(device=device).manual_seed(7)
+        fused_mcts.wave.launches = 0
+        fused_mcts.wave_reference.calls = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "general":
+            mcts = MCTS(env, cfg)
+            tree = mcts.search(states, evaluate, gen, SIMS)
+            stats[name] = (mcts.root_child_visits(tree),
+                           mcts.root_child_value_sums(tree))
+            waves = SIMS
+        else:
+            search = (fused_mcts.FusedConnectNSearch if name == "K2"
+                      else FusedConnectNSearchV2)(env, cfg)
+            stats[name] = search.search_root_stats(states, evaluate, gen,
+                                                   SIMS)
+            waves = SIMS + 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fused_mcts.wave.launches
+        plain_calls = fused_mcts.wave_reference.calls
+        expected = SIMS + 1 if name == "K2" else 0
+        check(launches == expected, f"{label} {name}: K2 launched "
+              f"{launches} times, expected {expected}")
+        check(plain_calls == 0, f"{label} {name}: K2's plain version ran "
+              f"{plain_calls} times")
+        k2_launches += launches
+        log(f"  {label}, {name} search: {wall:.3f} s, "
+            f"{1e3 * wall / waves:.3f} ms per wave ({waves} waves)")
+    visits, wsum = stats[names[0]]
+    for name in names[1:]:
+        check(same_bits(stats[name][0], visits),
+              f"{label}: {name} root visits differ from {names[0]}'s")
+        check(same_bits(stats[name][1], wsum),
+              f"{label}: {name} root value sums differ from {names[0]}'s")
+    sums = visits.sum(-1)
+    check(bool((sums <= SIMS - 1).all()) and int(sums.max()) == SIMS - 1,
+          f"{label}: root visits do not add up to at most {SIMS - 1}")
+    log(f"{label}: root visits and value sums bit-equal across "
+        f"{', '.join(names)} (B={BATCH}, {SIMS} simulations)")
+    return k2_launches
+
+
+def general_selfplay(env, mcts_cfg, sp_cfg, evaluate, device) -> None:
+    """Phase 8: ``GENERAL_PLIES`` plies of self-play through the general
+    search and through the fused one, from one generator seed each: the
+    samples and stats must be identical."""
+    from custom_alphazero_tpu_torch.runtime.selfplay import make_selfplay_fn
+
+    runs = {}
+    for fused in (False, True):
+        generate = make_selfplay_fn(env, mcts_cfg, sp_cfg, GENERAL_PLIES,
+                                    device=device, fused=fused)
+        gen = torch.Generator(device=device).manual_seed(5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[fused] = generate(evaluate, gen, BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"self-play, {'fused' if fused else 'general'} path: "
+            f"{GENERAL_PLIES} plies x {BATCH} games x {SIMS} sims in "
+            f"{wall:.2f} s = {GENERAL_PLIES * BATCH * SIMS / wall:.0f} "
+            f"sims/s")
+    (general_batch, general_stats), (fused_batch, fused_stats) = (
+        runs[False], runs[True])
+    for name, x, y in zip(fused_batch._fields, general_batch, fused_batch):
+        check(same_bits(x, y),
+              f"general and fused self-play samples differ in {name}")
+    for name, x, y in zip(fused_stats._fields, general_stats, fused_stats):
+        check(same_bits(x, y),
+              f"general and fused self-play stats differ in {name}")
+    check(int(fused_stats.plies) == GENERAL_PLIES * BATCH,
+          "self-play did not play every ply")
+    log(f"general and fused self-play: identical samples "
+        f"({GENERAL_PLIES * BATCH} rows) and stats")
 
 
 def time_forward(evaluate, obs, repeats: int = 5):
@@ -283,33 +434,17 @@ def main() -> int:
 
     # ---- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    logs = _build.build(["fused_mcts_v2"])
+    logs = _build.build(["fused_mcts_v2", "fused_mcts"])
     log(f"build: {time.perf_counter() - t0:.1f} s")
-    for line in logs["fused_mcts_v2"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
 
-    # ---- 3. kernel vs plain version ------------------------------------------
+    # ---- 3. K1 vs its plain version -----------------------------------------
     gen = torch.Generator(device=device).manual_seed(0)
-    noise = dict(use_dirichlet=True, dirichlet_alpha=1.0,
-                 dirichlet_fraction=0.25, c_puct=1.5)
-    results = {}
-    for geometry, timed in ((dict(width=7, height=6, n=4), True),
-                            (dict(width=5, height=4, n=3), False)):
-        env = ConnectN(ConnectNConfig(**geometry))
-        cfg = MCTSConfig(simulations=SIMS, **noise)
-        states = random_positions(env, BATCH, 20, gen, device)
-        t0 = time.perf_counter()
-        results[geometry["width"]] = kernel_vs_plain(env, cfg, states, SIMS,
-                                                     gen, timed)
-        log(f"kernel vs plain {geometry}: bit-equal on all 13 arrays at "
-            f"every wave of a B={BATCH}, {SIMS}-simulation search "
-            f"({time.perf_counter() - t0:.1f} s)")
-    max_err, kernel_ms, plain_ms, bound_ms, carry_bound_ms = results[7]
-    max_err = max(max_err, results[5][0])
-    log(f"wave at B={BATCH}, N={SIMS + 1}, 7x6: kernel {kernel_ms:.4f} ms, "
-        f"plain {plain_ms:.3f} ms, touched-bytes bound {bound_ms:.5f} ms, "
-        f"carry-bytes bound {carry_bound_ms:.4f} ms")
+    max_err, kernel_ms, plain_ms, bound_ms, carry_bound_ms = kernel_phase(
+        "K1", gen, device)
 
     # ---- 4. net -------------------------------------------------------------
     params, batch_stats, meta = load_jax_checkpoint(CHECKPOINT)
@@ -346,9 +481,7 @@ def main() -> int:
         f"enqueue {net_host_ms:.4f} ms")
 
     # ---- 5. main path: c4-r5 self-play --------------------------------------
-    mcts_cfg = MCTSConfig(simulations=SIMS, c_puct=1.5, dirichlet_alpha=1.0,
-                          dirichlet_fraction=0.25, use_dirichlet=True,
-                          greedy_from_move=12)
+    mcts_cfg = MCTSConfig(simulations=SIMS, greedy_from_move=12, **NOISE)
     sp_cfg = SelfPlayConfig(games_per_generation=BATCH, continuous=True,
                             exclude_draws=False)
     generate = make_selfplay_fn(env, mcts_cfg, sp_cfg, MAX_PLIES)
@@ -401,7 +534,25 @@ def main() -> int:
         f"{int(stats.draws)}, mean length "
         f"{float(stats.mean_game_length):.2f}; pi row-sum err {pi_err:.1e}")
 
-    # ---- 6. result lines ----------------------------------------------------
+    # ---- 6. K2 vs its plain version -----------------------------------------
+    k2 = kernel_phase("K2", gen, device)
+
+    # ---- 7. three searches agree --------------------------------------------
+    # One algorithm per convolution, so that equal batches give equal bits.
+    torch.backends.cudnn.deterministic = True
+    states = random_positions(env, BATCH, 20, gen, device)
+    k2_launches = three_searches(env, states, dyadic_evaluate(7), "dyadic",
+                                 ("K2", "K1", "general"))
+    k2_launches += three_searches(env, states, eval_bf16, "c4-r5 bf16 net",
+                                  ("K2", "K1"))
+
+    # ---- 8. general-path self-play ------------------------------------------
+    general_selfplay(env, mcts_cfg, sp_cfg, eval_bf16, device)
+    torch.backends.cudnn.deterministic = False
+
+    # ---- 9. result lines ----------------------------------------------------
+    k2_err, k2_ms, k2_plain_ms, k2_bound_ms, k2_carry_bound_ms = k2
+    check(k2_launches > 0 and k2_err == 0.0, "K2 did not run or disagreed")
     kernels = [{
         "name": "fused_mcts_v2_wave",
         "route": "cuda",
@@ -415,6 +566,19 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "carry_bound_ms": carry_bound_ms,
+    }, {
+        "name": "fused_mcts_wave",
+        "route": "cuda",
+        "source": "custom_alphazero_tpu_torch/csrc/fused_mcts.cu",
+        "replaces": "custom_alphazero_tpu/ops/fused_mcts.py:80",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "carry_bound_ms": k2_carry_bound_ms,
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exports plain C functions. It is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<digest>.so`` at the
 repo root (a directory ``.gitignore`` lists) on first use, and loaded with
-``ctypes``; the digest covers the source and the flags, so an edited kernel
-is rebuilt. Nothing is built at import time.
+``ctypes``; the digest covers the source, every header in ``csrc/`` (a
+kernel may include any of them) and the flags, so an edited kernel or
+header is rebuilt. Nothing is built at import time.
 
 ``-fmad=false`` keeps nvcc from contracting a*b+c into one fused
 multiply-add: the search kernel's PUCT arithmetic must round like the plain
@@ -44,8 +45,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(p for pattern in ("*.cuh", "*.h")
+                     for p in CSRC_DIR.glob(pattern))
+    for path in [CSRC_DIR / f"{name}.cu", *headers]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

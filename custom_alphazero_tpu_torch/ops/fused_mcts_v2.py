@@ -14,6 +14,9 @@ The port of custom_alphazero_tpu/ops/fused_mcts_v2.py. One search runs
 The last (drain) wave only backs up; its net forward would be unused and
 is skipped. The carry keeps the JAX kernel's float32 arrays, so every carry
 array can be compared bit for bit across the three implementations.
+
+The v1 search (ops/fused_mcts.py, kernel K2) runs this search loop, plain
+wave (``wave_plain``) and launcher (``launch``) on its own carry layout.
 """
 
 from __future__ import annotations
@@ -24,7 +27,11 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from custom_alphazero_tpu_torch.config import MCTSConfig, resolve_device
-from custom_alphazero_tpu_torch.envs.connect_n import ConnectN, ConnectNState
+from custom_alphazero_tpu_torch.envs.connect_n import (
+    ConnectN,
+    ConnectNState,
+    has_line,
+)
 from custom_alphazero_tpu_torch.ops import _build
 from custom_alphazero_tpu_torch.runtime.evaluate import EvaluateFn
 from custom_alphazero_tpu_torch.search.mcts import MCTS
@@ -109,6 +116,28 @@ def wave_reference(wave: int, mixed, renormed, value, root_board,
     """One wave in plain PyTorch: updates ``carry`` in place (the TPU
     kernel aliases it) and returns ``(carry, leaf_board)``."""
     wave_reference.calls += 1
+    leaf_board = wave_plain(wave, mixed, renormed, value, root_board, carry,
+                            geom, v1_rules=False)
+    return carry, leaf_board
+
+
+wave_reference.calls = 0
+
+
+def wave_plain(wave: int, mixed, renormed, value, root_board, carry: Carry,
+               geom: WaveGeometry, v1_rules: bool) -> torch.Tensor:
+    """The wave of both fused searches, in plain PyTorch, on a carry whose
+    edge arrays are (B, A, N) (views are fine: they are updated in place).
+    Returns the (B, 64) leaf board.
+
+    v1_rules: the v1 kernel's two differences. Its argmax runs over the
+    whole (N*A) edge range, so a node row with every action masked reads
+    the child of edge 0 (node 0, action 0), not of the node's action 0.
+    And it counts lines on the H x W board, where the v2 kernel counts them
+    in flat windows of the padded 64 cells. Neither changes a search: a
+    masked row is only met at a terminal or unexpanded node, whose child is
+    never followed, and on a board narrower than 8 columns no flat window
+    crosses a row edge without crossing the empty padding column."""
     (prior, children, visits, value_sum, parent, parent_action, expanded,
      is_terminal, reward, node_count, leaf, leaf_terminal) = carry
     bsz, a, n = prior.shape
@@ -138,7 +167,7 @@ def wave_reference(wave: int, mixed, renormed, value, root_board,
             bvalue = -bvalue
 
     if wave >= geom.simulations:  # drain wave: no select
-        return carry, torch.zeros_like(root_board)
+        return torch.zeros_like(root_board)
 
     # ---- phase B: select + create ------------------------------------------
     board = root_board.clone()
@@ -155,6 +184,9 @@ def wave_reference(wave: int, mixed, renormed, value, root_board,
     score = torch.where(prior_eff > 0.0, q + u, neg_inf)
     best_a = score.argmax(dim=1)  # (B, N), first maximum
     child_best = children.gather(1, best_a[:, None, :])[:, 0, :]
+    if v1_rules:
+        masked = score.max(dim=1).values == neg_inf
+        child_best = torch.where(masked, children[:, :1, 0], child_best)
 
     node = torch.zeros(bsz, dtype=torch.long, device=dev)
     action = torch.zeros(bsz, dtype=torch.long, device=dev)
@@ -188,7 +220,11 @@ def wave_reference(wave: int, mixed, renormed, value, root_board,
     slot = node_count[:, 0].clone()
     new = (code == _NEW) & (slot < float(n))
     placed, _ = _place(board, heights, action, geom.height)
-    win = _has_line_padded((placed == 1.0).float(), geom.n_in_row)
+    if v1_rules:
+        core = placed.view(bsz, _PH, _PW)[:, :geom.height, :geom.width]
+        win = has_line(core == 1.0, geom.n_in_row)
+    else:
+        win = _has_line_padded((placed == 1.0).float(), geom.n_in_row)
     filled = full + 1.0 >= float(geom.height * geom.width)
     child_term = win | filled
 
@@ -203,11 +239,7 @@ def wave_reference(wave: int, mixed, renormed, value, root_board,
     node_term = is_terminal[batch, node] > 0.0
     leaf[:, 0] = torch.where(new, slot, node.float())
     leaf_terminal[:, 0] = torch.where(new, child_term, node_term).float()
-    leaf_board = torch.where(new[:, None], -placed, board)
-    return carry, leaf_board
-
-
-wave_reference.calls = 0
+    return torch.where(new[:, None], -placed, board)
 
 
 # ---------------------------------------------------------------------------
@@ -215,22 +247,23 @@ wave_reference.calls = 0
 # ---------------------------------------------------------------------------
 
 _POINTER_ARGS = 17  # 4 inputs, 12 carry arrays, the leaf board
-_LIB = None
+_KERNELS = {}
 
 
-def _kernel():
-    global _LIB
-    if _LIB is None:
-        lib = _build.load("fused_mcts_v2")
-        fn = lib.fused_mcts_v2_wave
+def _kernel(name: str):
+    """The C entry point ``<name>_wave`` of csrc/<name>.cu, built and loaded
+    on first use."""
+    fn = _KERNELS.get(name)
+    if fn is None:
+        fn = getattr(_build.load(name), f"{name}_wave")
         fn.argtypes = (
             [ctypes.c_void_p] * _POINTER_ARGS
             + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2
             + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
-        _LIB = fn
-    return _LIB
+        _KERNELS[name] = fn
+    return fn
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -245,40 +278,53 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} is not contiguous")
 
 
-def wave(wave_idx: int, mixed, renormed, value, root_board, carry: Carry,
-         geom: WaveGeometry):
-    """One wave: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Updates ``carry`` in place; returns (carry, leaf_board)."""
+def launch(name: str, wave_idx: int, mixed, renormed, value, root_board,
+           carry, geom: WaveGeometry, edge_shape) -> torch.Tensor:
+    """Check the wave's tensors and launch kernel ``name`` on CUDA tensors
+    (any other device raises). The carry, with edge arrays of
+    ``edge_shape``, is updated in place; returns the leaf board, shaped
+    like ``root_board``."""
     device = root_board.device
-    if device.type == "cpu":
-        return wave_reference(wave_idx, mixed, renormed, value, root_board,
-                              carry, geom)
     if device.type != "cuda":
         raise ValueError(f"no wave kernel for device {device}")
-    bsz, a, n = carry.prior.shape
+    bsz, n = carry.parent.shape
+    a = mixed.shape[-1]
     if a > _PW:
         raise ValueError(f"the wave kernel takes at most {_PW} actions")
+    # The board is (B, 64) or (B, 8, 8): the same bytes, row-major.
+    board_shape = (bsz, _CELLS) if root_board.dim() == 2 else (bsz, _PH, _PW)
     inputs = (("mixed", mixed, (bsz, a)), ("renormed", renormed, (bsz, a)),
               ("value", value, (bsz, 1)),
-              ("root_board", root_board, (bsz, _CELLS)))
-    shapes = [(bsz, a, n)] * 4 + [(bsz, n)] * 5 + [(bsz, 1)] * 3
-    for name, t, shape in inputs:
-        _check(name, t, shape, device)
-    for name, t, shape in zip(Carry._fields, carry, shapes):
-        _check(name, t, shape, device)
-    leaf_board = torch.empty((bsz, _CELLS), dtype=torch.float32,
-                             device=device)
+              ("root_board", root_board, board_shape))
+    shapes = [edge_shape] * 4 + [(bsz, n)] * 5 + [(bsz, 1)] * 3
+    for label, t, shape in inputs:
+        _check(label, t, shape, device)
+    for label, t, shape in zip(Carry._fields, carry, shapes):
+        _check(label, t, shape, device)
+    leaf_board = torch.empty_like(root_board)
     ptrs = [t.data_ptr() for _, t, _ in inputs]
     ptrs += [t.data_ptr() for t in carry] + [leaf_board.data_ptr()]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _kernel()(
+        rc = _kernel(name)(
             *ptrs, bsz, a, n, geom.height, geom.width, geom.n_in_row,
             geom.c_puct, geom.simulations, wave_idx, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"fused_mcts_v2 wave kernel launch failed: "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"{name} wave kernel launch failed: cudaError {rc}")
+    return leaf_board
+
+
+def wave(wave_idx: int, mixed, renormed, value, root_board, carry: Carry,
+         geom: WaveGeometry):
+    """One wave: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Updates ``carry`` in place; returns (carry, leaf_board)."""
+    if root_board.device.type == "cpu":
+        return wave_reference(wave_idx, mixed, renormed, value, root_board,
+                              carry, geom)
+    bsz, a, n = carry.prior.shape
+    leaf_board = launch("fused_mcts_v2", wave_idx, mixed, renormed, value,
+                        root_board, carry, geom, (bsz, a, n))
     wave.launches += 1
     return carry, leaf_board
 
@@ -384,6 +430,19 @@ class FusedConnectNSearchV2:
             mixed = root_prior
         return renormed, mixed, root_prior
 
+    # The layout of the carry: the v1 search overrides these three.
+
+    def _init_carry(self, root_states: ConnectNState, num_nodes: int):
+        return init_carry(self.env, root_states, num_nodes)
+
+    def _wave(self, wave_idx: int, mixed, renormed, value, root_board,
+              carry, geom: WaveGeometry):
+        return wave(wave_idx, mixed, renormed, value, root_board, carry, geom)
+
+    def _root_stats(self, carry) -> Tuple[torch.Tensor, torch.Tensor]:
+        return (carry.visits[:, :, 0].to(torch.int32),
+                carry.value_sum[:, :, 0].clone())
+
     def search_root_stats(
         self, root_states: ConnectNState, evaluate_fn: EvaluateFn,
         generator: Optional[torch.Generator], simulations: int,
@@ -402,7 +461,7 @@ class FusedConnectNSearchV2:
             raise ValueError(f"root states on {dev}, search on {self.device}")
         geom = self.geometry(simulations)
         root_board = padded_board(root_states.board)
-        carry = init_carry(env, root_states, simulations + 1)
+        carry = self._init_carry(root_states, simulations + 1)
         root_live = ~env.is_terminal(root_states)
         plan = None if gamma is not None else self._mcts.noise_plan(generator)
 
@@ -411,24 +470,19 @@ class FusedConnectNSearchV2:
         value = torch.zeros((bsz, 1), device=dev)
         root_prior = torch.zeros((bsz, a), device=dev)
         for w in range(simulations + 1):
-            if w >= simulations or not self.cfg.use_dirichlet:
-                gamma_w = None
-            elif gamma is not None:
-                gamma_w = gamma[w]
-            else:
-                gamma_w = self._mcts.wave_noise(plan, bsz, dev)
+            # The drain wave selects nothing and draws no noise.
+            gamma_w = (None if w >= simulations
+                       else self._mcts.root_gamma(plan, gamma, w, bsz, dev))
             renormed, mixed, root_prior = self.wave_inputs(
                 w, simulations, leaf_board, carry.leaf_terminal, probs,
                 root_prior, root_live, gamma_w,
             )
-            carry, leaf_board = wave(w, mixed.contiguous(), renormed,
-                                     value, root_board, carry, geom)
+            carry, leaf_board = self._wave(w, mixed.contiguous(), renormed,
+                                           value, root_board, carry, geom)
             if w < simulations:
                 probs, v = evaluate_fn(
                     observe_board(leaf_board, env.cfg.height, env.cfg.width)
                 )
                 probs = probs.float()
                 value = v.float().reshape(bsz, 1).contiguous()
-        root_visits = carry.visits[:, :, 0].to(torch.int32)
-        root_value_sum = carry.value_sum[:, :, 0].clone()
-        return root_visits, root_value_sum
+        return self._root_stats(carry)

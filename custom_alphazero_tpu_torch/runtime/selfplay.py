@@ -1,10 +1,11 @@
 """Lockstep self-play generation on the card.
 
-The port of runtime/selfplay.py::make_selfplay_fn for the fused search
-path, plain and continuous modes. A Python loop steps a batch of games in
-lockstep: per ply one fused search (ops/fused_mcts_v2.py), a move sampled
-per game, and the samples recorded under a liveness mask. Sample semantics
-are the JAX ones:
+The port of runtime/selfplay.py::make_selfplay_fn, plain and continuous
+modes. A Python loop steps a batch of games in lockstep: per ply one search
+(the fused v2 search, ops/fused_mcts_v2.py, or the general
+``MCTS.search``), a move sampled per game, and the samples recorded under a
+liveness mask. Both searches give the same root visits, so the two paths
+give the same samples. Sample semantics are the JAX ones:
 
 - pi = root child visits normalised; from ``fullmove >= greedy_from_move``
   the played distribution and the stored target are a one-hot argmax.
@@ -32,6 +33,7 @@ from custom_alphazero_tpu_torch.config import (
 from custom_alphazero_tpu_torch.envs.connect_n import ConnectN
 from custom_alphazero_tpu_torch.ops import fused_mcts_v2
 from custom_alphazero_tpu_torch.runtime.evaluate import EvaluateFn
+from custom_alphazero_tpu_torch.search.mcts import MCTS
 
 
 class SelfPlayBatch(NamedTuple):
@@ -61,9 +63,10 @@ def make_selfplay_fn(env: ConnectN, mcts_cfg: MCTSConfig,
                      device=None, fused: bool = None) -> GenerateFn:
     """Build ``generate(evaluate_fn, generator, batch_size)``.
 
-    Only the fused search is ported: ``fused=False``, an env/config the
-    fused search does not support, subtree reuse and Gumbel search raise
-    NotImplementedError."""
+    fused: search with the fused v2 kernel; None (the default) does so
+    whenever ``fused_mcts_v2.supports`` the env and config, and otherwise
+    runs the general ``MCTS.search``. Subtree reuse and Gumbel search are
+    not ported and raise NotImplementedError."""
     if mcts_cfg.reuse_tree:
         raise NotImplementedError(
             "mcts.reuse_tree is not ported yet (ROADMAP.md queue 1, "
@@ -74,13 +77,24 @@ def make_selfplay_fn(env: ConnectN, mcts_cfg: MCTSConfig,
             "mcts.use_gumbel is not ported yet (ROADMAP.md queue 1, "
             "'Gumbel search')"
         )
-    if fused is False or not fused_mcts_v2.supports(env, mcts_cfg):
-        raise NotImplementedError(
-            "only the fused Connect-N search is ported; the general "
-            "MCTS.search is not (ROADMAP.md queue 1, 'General search path')"
-        )
+    if fused is None:
+        fused = fused_mcts_v2.supports(env, mcts_cfg)
     device = resolve_device(device)
-    search = fused_mcts_v2.FusedConnectNSearchV2(env, mcts_cfg, device)
+    sims = mcts_cfg.simulations
+    if fused:
+        fused_search = fused_mcts_v2.FusedConnectNSearchV2(env, mcts_cfg,
+                                                           device)
+
+        def search_visits(states, evaluate_fn, generator):
+            return fused_search.search_root_stats(states, evaluate_fn,
+                                                  generator, sims)[0]
+    else:
+        mcts = MCTS(env, mcts_cfg)
+
+        def search_visits(states, evaluate_fn, generator):
+            tree = mcts.search(states, evaluate_fn, generator, sims)
+            return mcts.root_child_visits(tree)
+
     num_actions = env.num_actions
 
     def generate(evaluate_fn: EvaluateFn, generator: torch.Generator,
@@ -94,10 +108,7 @@ def make_selfplay_fn(env: ConnectN, mcts_cfg: MCTSConfig,
             active = ~env.is_terminal(states)
             obs = env.observe(states)
             mv = states.fullmove
-            root_visits, _ = search.search_root_stats(
-                states, evaluate_fn, generator, mcts_cfg.simulations
-            )
-            visits = root_visits.float()
+            visits = search_visits(states, evaluate_fn, generator).float()
             probs = visits / visits.sum(dim=-1, keepdim=True).clamp_min(1.0)
             greedy = mv >= mcts_cfg.greedy_from_move
             one_hot = torch.nn.functional.one_hot(

@@ -1,10 +1,30 @@
-"""The pieces of search/mcts.py that the fused Connect-N search uses.
+"""Batched array-tree PUCT search (the port of search/mcts.py).
 
-Prior renormalization, the per-wave root Dirichlet noise plan and the noisy
-root prior, with the JAX arithmetic in the same order so that root
-statistics stay bit-equal to JAX (tests/test_torch_port_search.py). The
-general ``MCTS.search`` (eager path, top-K priors, reuse) is not ported yet;
-ROADMAP.md queues it.
+``MCTS.search`` runs a fresh-tree search for a batch of games, one
+simulation wave at a time, with the JAX package's tree and semantics, held
+to it field by field (tests/test_torch_port_mcts.py):
+
+- Static node slots: the node that wave ``i`` creates goes in slot ``i``;
+  slots of waves that create nothing stay unlinked (parent -1). Wave 0 only
+  expands the root and backs nothing up.
+- Edge statistics live on the child node (``visits`` / ``value_sum`` of the
+  edge into it). Every edge has at most one child.
+- PUCT: Q = W / N (0 unvisited), U = c_puct * P * sqrt(sum N) / (1 + N),
+  illegal actions score the float32 minimum, ties go to the lowest action.
+  Statistics are frozen within a wave, so every node's choice is computed
+  once per wave and the descent reads it.
+- The env state is carried through the descent with ``env.step_lite``.
+- Top-K priors when ``prior_width`` < A: slot 0 holds the lowest legal
+  action, slots 1.. the top K-1 of the rest (ties to the lower action). The
+  root keeps its full prior row and full-width edge stats, maintained by the
+  backup.
+
+Where JAX contracts one-hot einsums to avoid gathers and scatters on the
+TPU, the port indexes: each game's children are kept in a (B, N, K) table
+of child slots, written when a node is created, so an edge's statistics
+are a gather of its child's. Each edge has one child at most, so the values
+are the einsums' exactly. In the ``fast_edge_stats`` layout that table is
+JAX's ``child_index`` field.
 
 Row sums over the action axis are taken left to right (``rowsum``), the
 order XLA's CPU reduction uses for these short rows, so that non-dyadic
@@ -13,13 +33,26 @@ sums (the Dirichlet normaliser) round as in JAX.
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Any, Optional
 
 import torch
 
 from custom_alphazero_tpu_torch.config import MCTSConfig
 from custom_alphazero_tpu_torch.envs.core import Env
 from custom_alphazero_tpu_torch.ops.rng import safe_gamma
+from custom_alphazero_tpu_torch.runtime.evaluate import EvaluateFn
+
+# Descent stop codes.
+_CONTINUE = 0  # keep descending
+_NEW = 1       # expanded node whose best action has no child yet
+_UNEXPANDED = 2  # an unexpanded node (only the root, at wave 0)
+_TERMINAL = 3  # a terminal node
+
+NO_PARENT = -1
+UNVISITED = -1
+
+_NEG_INF = torch.finfo(torch.float32).min
 
 
 def rowsum(x: torch.Tensor) -> torch.Tensor:
@@ -30,12 +63,140 @@ def rowsum(x: torch.Tensor) -> torch.Tensor:
     return total
 
 
+@dataclass
+class Tree:
+    """Search trees of capacity N nodes for a batch of B games.
+
+    root_state: the batch's root positions (node 0).
+    parent, parent_action: (B, N) int32; parent -1 for the root and for
+        unlinked slots.
+    visits, value_sum: (B, N) float32 statistics of the edge into the node,
+        from the point of view of the player taking that edge.
+    prior: (B, N, K) legal-masked renormalised priors (0 = illegal).
+    expanded, is_terminal: (B, N) bool.
+    reward: (B, N) float32 reward of the mover who created the node.
+    value_evaluated: (B, N) float32 network value at expansion.
+    node_count: (B,) int32 linked nodes.
+
+    Top-K layout only (None at full width): prior_acts (B, N, K) int32
+    action of each prior slot; parent_slot (B, N) int32 slot of the node in
+    its parent's row (-1 for root children); root_prior, root_visits,
+    root_value_sum (B, A) float32 full-width root row and edge stats;
+    child_index (B, N, K) int32 child slot per (node, slot) edge, -1 where
+    none (``fast_edge_stats`` only).
+    """
+
+    root_state: Any
+    parent: torch.Tensor
+    parent_action: torch.Tensor
+    visits: torch.Tensor
+    value_sum: torch.Tensor
+    prior: torch.Tensor
+    expanded: torch.Tensor
+    is_terminal: torch.Tensor
+    reward: torch.Tensor
+    value_evaluated: torch.Tensor
+    node_count: torch.Tensor
+    prior_acts: Optional[torch.Tensor] = None
+    parent_slot: Optional[torch.Tensor] = None
+    root_prior: Optional[torch.Tensor] = None
+    root_visits: Optional[torch.Tensor] = None
+    root_value_sum: Optional[torch.Tensor] = None
+    child_index: Optional[torch.Tensor] = None
+
+
+def _write(arr: torch.Tensor, col: int, value, mask: torch.Tensor) -> None:
+    """arr[:, col] = value where mask (B,), in place."""
+    arr[:, col] = torch.where(
+        mask.view((-1,) + (1,) * (arr.dim() - 2)),
+        torch.as_tensor(value, dtype=arr.dtype, device=arr.device),
+        arr[:, col],
+    )
+
+
 class MCTS:
-    """Root-prior helpers of the batched PUCT search."""
+    """Batched array-tree PUCT search over an :class:`Env`."""
+
+    # Auto top-K clamp for large action spaces (the JAX package's
+    # MCTS.AUTO_TOPK_CLAMP): K = simulations stays exact up to 256.
+    AUTO_TOPK_CLAMP = 256
 
     def __init__(self, env: Env, cfg: MCTSConfig = MCTSConfig()):
         self.env = env
         self.cfg = cfg
+
+    # -- tree construction -------------------------------------------------
+
+    def prior_width(self, simulations: int) -> int:
+        """K of the stored prior rows. cfg.topk_actions: 0 = auto
+        (min(simulations, A), clamped to AUTO_TOPK_CLAMP when A > 2 *
+        AUTO_TOPK_CLAMP), -1 = full width, > 0 = explicit."""
+        a = self.env.num_actions
+        if self.cfg.topk_actions < 0:
+            return a
+        if self.cfg.topk_actions > 0:
+            return min(self.cfg.topk_actions, a)
+        k = min(simulations, a)
+        if a > 2 * self.AUTO_TOPK_CLAMP:
+            k = min(k, self.AUTO_TOPK_CLAMP)
+        return k
+
+    def init_tree(self, root_states, num_nodes: int,
+                  prior_width: Optional[int] = None) -> Tree:
+        """Fresh trees with the root in slot 0."""
+        env, n, a = self.env, num_nodes, self.env.num_actions
+        k = a if prior_width is None else prior_width
+        compressed = k < a
+        root_terminal = env.is_terminal(root_states)
+        bsz = root_terminal.shape[0]
+        dev = root_terminal.device
+
+        def full(shape, value, dtype):
+            return torch.full((bsz,) + shape, value, dtype=dtype, device=dev)
+
+        f32, i32 = torch.float32, torch.int32
+        is_terminal = full((n,), False, torch.bool)
+        is_terminal[:, 0] = root_terminal
+        reward = full((n,), 0.0, f32)
+        # Value for the player who moved into the root; read only when the
+        # root itself is terminal.
+        reward[:, 0] = -env.terminal_value(root_states)
+        return Tree(
+            root_state=root_states,
+            parent=full((n,), NO_PARENT, i32),
+            parent_action=full((n,), 0, i32),
+            visits=full((n,), 0.0, f32),
+            value_sum=full((n,), 0.0, f32),
+            prior=full((n, k), 0.0, f32),
+            expanded=full((n,), False, torch.bool),
+            is_terminal=is_terminal,
+            reward=reward,
+            value_evaluated=full((n,), 0.0, f32),
+            node_count=full((), 1, i32),
+            prior_acts=full((n, k), 0, i32) if compressed else None,
+            parent_slot=full((n,), UNVISITED, i32) if compressed else None,
+            root_prior=full((a,), 0.0, f32) if compressed else None,
+            root_visits=full((a,), 0.0, f32) if compressed else None,
+            root_value_sum=full((a,), 0.0, f32) if compressed else None,
+            child_index=(full((n, k), UNVISITED, i32)
+                         if compressed and self.cfg.fast_edge_stats
+                         else None),
+        )
+
+    # -- scores, priors and noise ---------------------------------------------
+
+    def _ucb_scores(self, prior, nv, w):
+        """(..., A) PUCT scores; illegal (prior 0) slots score the float32
+        minimum. With zero sibling visits every legal action scores 0 and
+        the lowest one wins (the reference's quirk)."""
+        q = torch.where(nv > 0, w / nv.clamp_min(1.0), 0.0)
+        u = (self.cfg.c_puct * prior * torch.sqrt(nv.sum(-1, keepdim=True))
+             / (1.0 + nv))
+        return torch.where(prior > 0, q + u, _NEG_INF)
+
+    def _ucb_action(self, prior, nv, w):
+        """(...,) PUCT argmax, the first maximum (lowest action)."""
+        return self._ucb_scores(prior, nv, w).argmax(-1)
 
     def _renormalize(self, probs: torch.Tensor,
                      legal: torch.Tensor) -> torch.Tensor:
@@ -69,6 +230,17 @@ class MCTS:
         return safe_gamma(plan, self.cfg.dirichlet_alpha,
                           (batch, self.env.num_actions), device)
 
+    def root_gamma(self, plan, gamma: Optional[torch.Tensor], wave: int,
+                   batch: int, device) -> Optional[torch.Tensor]:
+        """Wave ``wave``'s (B, A) root-noise draw: ``gamma[wave]`` when the
+        caller gives (S, B, A) draws, else the next draw of the plan; None
+        when noise is off."""
+        if not self.cfg.use_dirichlet:
+            return None
+        if gamma is not None:
+            return gamma[wave]
+        return self.wave_noise(plan, batch, device)
+
     def _root_noisy_prior(self, root_prior: torch.Tensor,
                           gamma: Optional[torch.Tensor]) -> torch.Tensor:
         """(1 - eps) * P + eps * Dir(alpha) over the legal root actions."""
@@ -82,3 +254,232 @@ class MCTS:
                  + cfg.dirichlet_fraction * noise)
         # Keep the legal floor: noise can underflow to zero.
         return torch.where(legal, mixed.clamp_min(1e-35), 0.0)
+
+    # -- select and backup ---------------------------------------------------
+
+    def _descend(self, tree: Tree, best_a, best_child):
+        """SELECT: walk each game from the root along the per-wave
+        (best_a, best_child) tables (B, N), carrying the env state with
+        ``step_lite``, until a terminal node, an unexpanded node or an edge
+        without a child. Returns (node, action, code, state)."""
+        bsz, n = tree.parent.shape
+        dev = tree.parent.device
+        batch = torch.arange(bsz, device=dev)
+        node = torch.zeros(bsz, dtype=torch.long, device=dev)
+        action = torch.zeros(bsz, dtype=torch.long, device=dev)
+        code = torch.full((bsz,), _CONTINUE, dtype=torch.long, device=dev)
+        state = tree.root_state
+        # A path has at most N nodes: children are newer than parents.
+        for _ in range(n):
+            cont = code == _CONTINUE
+            if not bool(cont.any()):
+                break
+            child = best_child[batch, node]
+            new_code = torch.where(
+                ~cont, code,
+                torch.where(
+                    tree.is_terminal[batch, node], _TERMINAL,
+                    torch.where(~tree.expanded[batch, node], _UNEXPANDED,
+                                torch.where(child == UNVISITED, _NEW,
+                                            _CONTINUE)),
+                ),
+            )
+            action = torch.where(cont, best_a[batch, node], action)
+            descend = new_code == _CONTINUE
+            state = self.env.step_lite(state, action).where(descend, state)
+            node = torch.where(descend, child, node)
+            code = new_code
+        return node, action, code, state
+
+    def _backup(self, tree: Tree, leaf, leaf_value):
+        """BACKUP: add the leaf value along the parent chain, the sign
+        alternating per ply; a root leaf backs nothing up. Returns the
+        value backed into each game's root edge and whether there was one
+        (the top-K layout's root statistics)."""
+        bsz, n = tree.parent.shape
+        batch = torch.arange(bsz, device=leaf.device)
+        root_val = torch.zeros(bsz, device=leaf.device)
+        root_hit = torch.zeros(bsz, dtype=torch.bool, device=leaf.device)
+        bnode, bvalue = leaf, leaf_value
+        for _ in range(n):
+            active = bnode > 0
+            if not bool(active.any()):
+                break
+            tree.visits[batch, bnode] += active.float()
+            tree.value_sum[batch, bnode] += torch.where(active, bvalue, 0.0)
+            parent = tree.parent[batch, bnode].long()
+            is_root_edge = active & (parent == 0)
+            root_val = torch.where(is_root_edge, bvalue, root_val)
+            root_hit = root_hit | is_root_edge
+            bnode = torch.where(active, parent, bnode)
+            bvalue = -bvalue
+        return root_val, root_hit
+
+    # -- batched search ------------------------------------------------------
+
+    def search(self, root_states, evaluate_fn: EvaluateFn,
+               generator: Optional[torch.Generator], simulations: int,
+               gamma: Optional[torch.Tensor] = None) -> Tree:
+        """Run ``simulations`` PUCT simulations from a batch of roots.
+
+        evaluate_fn: (B, H, W, C) observations -> (probs (B, A), value
+            (B,)), the batched network forward.
+        generator: draws the root noise when ``cfg.use_dirichlet``: one
+            (B, A) Gamma draw per simulation, in order.
+        gamma: optional (S, B, A) draws used instead of the generator
+            (tests feed JAX's draws through it).
+        """
+        env, cfg = self.env, self.cfg
+        n = max(cfg.max_nodes, simulations)
+        a = env.num_actions
+        k = self.prior_width(simulations)
+        compressed = k < a
+        tree = self.init_tree(root_states, n, k)
+        bsz = tree.parent.shape[0]
+        dev = tree.parent.device
+        batch = torch.arange(bsz, device=dev)
+        plan = None if gamma is not None else self.noise_plan(generator)
+        # Child slot of each (node, prior slot) edge. In the top-K layout
+        # the root's row stays empty: its children are in root_children,
+        # by action.
+        children = (tree.child_index if tree.child_index is not None
+                    else torch.full((bsz, n, k), UNVISITED, dtype=torch.int32,
+                                    device=dev))
+        if compressed:
+            root_children = torch.full((bsz, a), UNVISITED,
+                                       dtype=torch.int32, device=dev)
+
+        for i in range(simulations):
+            root_prior = self._root_noisy_prior(
+                tree.root_prior if compressed else tree.prior[:, 0],
+                self.root_gamma(plan, gamma, i, bsz, dev),
+            )
+
+            # Per-wave PUCT choice of every node (stats frozen in a wave).
+            has = children >= 0
+            flat = children.clamp_min(0).long().view(bsz, n * k)
+            nv = torch.where(has, tree.visits.gather(1, flat).view(bsz, n, k),
+                             0.0)
+            w = torch.where(has,
+                            tree.value_sum.gather(1, flat).view(bsz, n, k),
+                            0.0)
+            if compressed:
+                # Ties go to the lowest ACTION, as at full width: take the
+                # smallest tied action, then find its slot.
+                score = self._ucb_scores(tree.prior, nv, w)
+                tied = score == score.max(-1, keepdim=True).values
+                best_a = torch.where(tied, tree.prior_acts, a).min(-1).values
+                best_k = (tied & (tree.prior_acts == best_a[..., None])) \
+                    .to(torch.uint8).argmax(-1)
+                root_best = self._ucb_action(root_prior, tree.root_visits,
+                                             tree.root_value_sum)
+                best_a = best_a.long()
+                best_a[:, 0] = root_best
+                best_child = children.gather(2, best_k[..., None])[..., 0]
+                best_child[:, 0] = root_children.gather(
+                    1, root_best[:, None])[:, 0]
+            else:
+                prior_eff = tree.prior.clone()
+                prior_eff[:, 0] = root_prior
+                best_a = self._ucb_action(prior_eff, nv, w)  # (B, N)
+                best_child = children.gather(2, best_a[..., None])[..., 0]
+            best_child = best_child.long()
+
+            node, action, code, state = self._descend(tree, best_a,
+                                                      best_child)
+
+            # CREATE the selected child in slot i and EVALUATE the leaves.
+            new = code == _NEW
+            child_state, reward = env.step(state, action)
+            leaf = torch.where(new, i, node)
+            leaf_state = child_state.where(new, state)
+            child_terminal = env.is_terminal(child_state)
+            leaf_terminal = torch.where(new, child_terminal,
+                                        tree.is_terminal[batch, node])
+            leaf_reward = torch.where(new, reward, tree.reward[batch, node])
+            probs, values = evaluate_fn(env.observe(leaf_state))
+            probs = probs.float()
+            values = values.float().reshape(bsz)
+
+            _write(tree.parent, i, node, new)
+            _write(tree.parent_action, i, action, new)
+            _write(tree.is_terminal, i, child_terminal, new)
+            _write(tree.reward, i, reward, new)
+            tree.node_count += new.to(torch.int32)
+            if compressed:
+                sel_slot = torch.where(node == 0, UNVISITED,
+                                       best_k[batch, node])
+                _write(tree.parent_slot, i, sel_slot, new)
+                slot = sel_slot.clamp_min(0)
+                children[batch, node, slot] = torch.where(
+                    new & (node > 0), i, children[batch, node, slot])
+                root_children[batch, action] = torch.where(
+                    new & (node == 0), i, root_children[batch, action])
+            else:
+                children[batch, node, action] = torch.where(
+                    new, i, children[batch, node, action])
+
+            # EXPAND the leaf unless terminal or already expanded. A leaf to
+            # expand is always in slot i (a new child, or the root at
+            # wave 0).
+            do = ~tree.expanded[batch, leaf] & ~leaf_terminal
+            legal = env.legal_mask(leaf_state)
+            renormed = self._renormalize(probs, legal)
+            if compressed:
+                # Slot 0: the lowest legal action (a node's first child),
+                # boosted above every prior and then given back its own;
+                # slots 1..: the top K-1 others, ties to the lower action.
+                a0 = legal.to(torch.uint8).argmax(-1)
+                a0_oh = torch.arange(a, device=dev)[None, :] == a0[:, None]
+                boosted = renormed + a0_oh.float() * 2.0
+                top_vals, top_acts = torch.sort(boosted, dim=-1,
+                                                descending=True, stable=True)
+                top_vals = top_vals[:, :k].clone()
+                top_vals[:, 0] = renormed[batch, a0]
+                _write(tree.prior, i, top_vals, do)
+                _write(tree.prior_acts, i, top_acts[:, :k], do)
+                expand_root = (do & (leaf == 0))[:, None]
+                tree.root_prior = torch.where(expand_root, renormed,
+                                              tree.root_prior)
+            else:
+                _write(tree.prior, i, renormed, do)
+            _write(tree.value_evaluated, i, values, do)
+            _write(tree.expanded, i, True, do)
+
+            leaf_value = torch.where(leaf_terminal, leaf_reward, -values)
+            root_val, root_hit = self._backup(tree, leaf, leaf_value)
+            if compressed:
+                # The root edge of the wave's path is the root's choice.
+                root_a = best_a[:, 0]
+                tree.root_visits[batch, root_a] += root_hit.float()
+                tree.root_value_sum[batch, root_a] += torch.where(
+                    root_hit, root_val, 0.0)
+        return tree
+
+    # -- outputs -------------------------------------------------------------
+
+    def _root_edges(self, tree: Tree, stat: torch.Tensor) -> torch.Tensor:
+        """(B, A) per-node ``stat`` of each root child, 0 where none."""
+        a = self.env.num_actions
+        is_child = tree.parent == 0
+        # Non-children go to a spare column; each root action has one child
+        # at most.
+        col = torch.where(is_child, tree.parent_action.long(), a)
+        out = torch.zeros((stat.shape[0], a + 1), dtype=stat.dtype,
+                          device=stat.device)
+        out.scatter_(1, col, torch.where(is_child, stat, 0.0))
+        return out[:, :a]
+
+    def root_child_visits(self, tree: Tree) -> torch.Tensor:
+        """(B, A) int32 edge visit counts at the root (the pi numerator)."""
+        return self._root_edges(tree, tree.visits).to(torch.int32)
+
+    def root_child_value_sums(self, tree: Tree) -> torch.Tensor:
+        """(B, A) float32 summed backed-up edge values at the root."""
+        return self._root_edges(tree, tree.value_sum)
+
+    def root_q_values(self, tree: Tree) -> torch.Tensor:
+        """(B, A) mean action values at the root."""
+        nv = self.root_child_visits(tree).float()
+        w = self.root_child_value_sums(tree)
+        return torch.where(nv > 0, w / nv.clamp_min(1.0), 0.0)

@@ -15,6 +15,8 @@ from custom_alphazero_tpu_torch.config import (
     SelfPlayConfig,
 )
 from custom_alphazero_tpu_torch.envs.connect_n import ConnectN
+from custom_alphazero_tpu_torch.ops import _build
+from custom_alphazero_tpu_torch.ops.fused_mcts import FusedConnectNSearch
 from custom_alphazero_tpu_torch.ops.fused_mcts_v2 import FusedConnectNSearchV2
 from custom_alphazero_tpu_torch.ops.rng import safe_gamma
 from custom_alphazero_tpu_torch.runtime.selfplay import make_selfplay_fn
@@ -73,8 +75,27 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         FusedConnectNSearchV2(env, MCTSConfig())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FusedConnectNSearch(env, MCTSConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_selfplay_fn(env, MCTSConfig(), SelfPlayConfig(), 4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         env.init(2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         from_jax_variables({}, {}, 7, ModelConfig(depth=1, filters=4))
+
+
+def test_kernel_digest_covers_headers(tmp_path, monkeypatch):
+    """Editing a kernel's source or any header in csrc/ changes the library
+    path, so a stale build is never loaded."""
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// v1\n")
+    first = _build.library_path("k")
+    assert first == _build.library_path("k")
+    (tmp_path / "shared.cuh").write_text("// v2\n")
+    second = _build.library_path("k")
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n// edited\n')
+    third = _build.library_path("k")
+    assert len({first, second, third}) == 3
+    assert first.parent == _build.BUILD_DIR
+

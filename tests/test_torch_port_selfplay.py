@@ -1,5 +1,5 @@
-"""The port's self-play generation against JAX's fused self-play, byte for
-byte, in plain and continuous mode.
+"""The port's self-play generation against JAX's, byte for byte: the fused
+path in plain and continuous mode, and the general-search path.
 
 Moves are made deterministic with ``greedy_from_move=0`` and no root noise
 (torch cannot replay JAX's sampling stream). The dyadic evaluator also
@@ -49,24 +49,20 @@ def _torch_row_dyadic(num_actions):
     return evaluate
 
 
-@pytest.mark.parametrize("continuous", [False, True],
-                         ids=["plain", "continuous"])
-def test_selfplay_matches_jax(continuous):
-    batch, max_plies = 8, 20
-    mcts = dict(simulations=10, greedy_from_move=0)
-    sp = dict(continuous=continuous, discount=0.5,
-              exclude_draws=not continuous)
+def _assert_matches_jax(mcts, sp, fused, batch=8, max_plies=20):
+    """Port and JAX self-play at 5x4 connect-3: equal sample bytes and
+    stats. ``fused`` is passed to both (None lets each choose)."""
     jenv = JaxConnectN(JaxConnectNConfig(width=5, height=4, n=3))
     jgen = jax_make_selfplay_fn(jenv, JaxMCTSConfig(**mcts),
                                 JaxSelfPlayConfig(**sp), max_plies,
-                                fused=True)
+                                fused=fused)
     ref_batch, ref_stats = jax.jit(
         lambda r: jgen(_jax_row_dyadic(5), r, batch)
     )(jax.random.PRNGKey(0))
 
     env = ConnectN(ConnectNConfig(width=5, height=4, n=3))
     gen = make_selfplay_fn(env, MCTSConfig(**mcts), SelfPlayConfig(**sp),
-                           max_plies, device="cpu")
+                           max_plies, device="cpu", fused=fused)
     got_batch, got_stats = gen(_torch_row_dyadic(5),
                                torch.Generator().manual_seed(0), batch)
 
@@ -81,6 +77,17 @@ def test_selfplay_matches_jax(continuous):
                                       err_msg=name)
     assert int(got_stats.games) > 0
     assert len(set(map(tuple, got_batch.policy[:batch].tolist()))) > 1
+
+
+@pytest.mark.parametrize("continuous", [False, True],
+                         ids=["plain", "continuous"])
+def test_selfplay_matches_jax(continuous):
+    _assert_matches_jax(
+        dict(simulations=10, greedy_from_move=0),
+        dict(continuous=continuous, discount=0.5,
+             exclude_draws=not continuous),
+        fused=True,
+    )
 
 
 def test_selfplay_samples_noise_on():
@@ -109,6 +116,16 @@ def test_selfplay_samples_noise_on():
     (dict(max_nodes=64), "General search path"),
 ])
 def test_unported_modes_raise(override, item):
+    """Subtree reuse and Gumbel search are not ported and raise, naming
+    their ROADMAP item. The general search path is ported: a config that
+    the fused search rejects (max_nodes > 0) runs it and matches JAX's
+    general-path self-play."""
+    if item == "General search path":
+        _assert_matches_jax(dict(simulations=8, greedy_from_move=0,
+                                 **override),
+                            dict(continuous=True, exclude_draws=False),
+                            fused=None, batch=6, max_plies=14)
+        return
     env = ConnectN(ConnectNConfig())
     with pytest.raises(NotImplementedError, match=item):
         make_selfplay_fn(env, MCTSConfig(**override), SelfPlayConfig(), 4,
@@ -116,7 +133,29 @@ def test_unported_modes_raise(override, item):
 
 
 def test_non_fused_request_raises():
+    """``fused=False`` no longer raises: it runs the general search and
+    matches JAX's ``make_selfplay_fn(fused=False)``."""
+    _assert_matches_jax(dict(simulations=8, greedy_from_move=0),
+                        dict(continuous=False, discount=0.5,
+                             exclude_draws=True),
+                        fused=False, batch=6, max_plies=14)
+
+
+def test_general_and_fused_selfplay_agree():
+    """The port's general and fused self-play from one generator seed, with
+    root noise and sampled moves: byte-equal samples and equal stats."""
     env = ConnectN(ConnectNConfig())
-    with pytest.raises(NotImplementedError, match="General search path"):
-        make_selfplay_fn(env, MCTSConfig(), SelfPlayConfig(), 4,
-                         device="cpu", fused=False)
+    cfg = MCTSConfig(simulations=12, greedy_from_move=4, use_dirichlet=True,
+                     dirichlet_alpha=1.0)
+    sp = SelfPlayConfig(exclude_draws=True)
+    outs = []
+    for fused in (False, True):
+        gen = make_selfplay_fn(env, cfg, sp, 12, device="cpu", fused=fused)
+        outs.append(gen(_torch_row_dyadic(7),
+                        torch.Generator().manual_seed(11), 8))
+    (ref_batch, ref_stats), (got_batch, got_stats) = outs
+    for name, got, want in zip(got_batch._fields, got_batch, ref_batch):
+        assert got.numpy().tobytes() == want.numpy().tobytes(), name
+    for name, got, want in zip(got_stats._fields, got_stats, ref_stats):
+        assert torch.equal(got, want), name
+    assert len(set(map(tuple, got_batch.policy[:8].tolist()))) > 1
