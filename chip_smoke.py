@@ -14,28 +14,39 @@ Phases (any failed check raises and exits non-zero):
    parallel.
 3. K1 vs its plain version: whole searches (B=1024, 250 simulations, root
    noise on, a dyadic evaluator) from random positions at 7x6 n=4 and 5x4
-   n=3, through the CUDA wave kernel and ``wave_reference`` side by side;
-   all 12 carry arrays and the leaf board must be bit-equal after every
-   wave. Times of the kernel (CUDA events over back-to-back launches), of
-   the plain version, and the kernel's bytes bound.
+   n=3, through the CUDA step kernel and ``wave_step_reference`` side by
+   side; all 12 carry arrays, the leaf board, ``renormed``, ``mixed``,
+   ``root_prior``, the observation, the recorded path and the wave counter
+   must be bit-equal after every wave. Times of the kernel (CUDA events
+   over back-to-back launches), of the plain version, the kernel's bytes
+   bound, and a fit of kernel time against the deepest game's depth.
 4. Net: the committed c4-r5 checkpoint through load_jax_checkpoint; the
    card's fp32 forward (TF32 off) against the CPU's, and bf16 against fp32.
 5. Main path: c4-r5 self-play (depth 4, 128 filters, 250 simulations,
    Dirichlet alpha 1.0, continuous auto-reset, 1024 games, 42 plies) with
-   the trained weights in bf16; every search wave must go through the
-   kernel and none through the plain version. Prints simulations/s, the
-   kernel / net / rest split and the sample checks.
+   the trained weights in bf16, every wave a replay of the search's CUDA
+   graph (the step kernel + the net); every wave must go through the
+   kernel and none through the plain version. Then the same generation
+   with every wave launched from the host (``graph=False``) and both once
+   more, in turns. Prints simulations/s of each, the kernel / net / rest
+   split, one profiled ply of each and the sample checks.
 6. K2 vs its plain version, as phase 3.
-7. Three searches agree: K2 (``FusedConnectNSearch``), K1
-   (``FusedConnectNSearchV2``) and the general ``MCTS.search`` from the same
-   1024 random c4-r5 positions, 250 simulations, root noise from one
-   generator seed each: with the dyadic evaluator, bit-equal root visits
-   and value sums; with the trained bf16 net (cuDNN deterministic), K2 and
-   K1 equal. Every K2 wave must go through its kernel. Prints each
+7. The searches agree: K2 (``FusedConnectNSearch``) and K1
+   (``FusedConnectNSearchV2``), each launched from the host and replayed
+   from its graph, and the general ``MCTS.search``, from the same 1024
+   random c4-r5 positions, 250 simulations, root noise from one generator
+   seed each: with the dyadic evaluator, bit-equal root visits and value
+   sums; with the trained bf16 net (cuDNN deterministic), the four fused
+   ones equal. Every K2 wave must go through its kernel. Prints each
    search's wall time per wave.
 8. General-path self-play: ``make_selfplay_fn(fused=False)`` and the fused
-   path at the phase-5 configuration, 4 plies each from one generator
-   seed: identical samples and stats. Prints sims/s of both.
+   path (its default, the graph) at the phase-5 configuration, 4 plies
+   each from one generator seed: identical samples and stats. Prints
+   sims/s of both.
+``python3 chip_smoke.py --launch-shapes`` runs a tuning aid in place of the
+phases: K1 built with 1, 2, 4 and 8 games (warps) per block, each checked
+and timed as in phase 3.
+
 9. The kernels' JSON line, the card's line, and the result line.
 """
 
@@ -57,6 +68,10 @@ SIMS = 250
 MAX_PLIES = 42
 GENERAL_PLIES = 4  # phase 8: plies of each self-play path
 SNAPSHOT_LAUNCHES = 10
+# Waves whose mean kernel time is the kernel's "ms" (as in earlier runs), and
+# further ones for the fit of time against depth.
+HEADLINE_WAVES = (1, SIMS // 4, SIMS // 2, (3 * SIMS) // 4, SIMS - 1)
+FIT_WAVES = (4, 16, 31)
 # Root noise of the c4-r5 configuration (artifacts/c4-r5/config.json).
 NOISE = dict(use_dirichlet=True, dirichlet_alpha=1.0, dirichlet_fraction=0.25,
              c_puct=1.5)
@@ -98,42 +113,48 @@ def random_positions(env, batch: int, max_plies: int, gen, device):
     return states
 
 
-def leaf_depth(carry, leaf):
-    """(B,) tree depth of each game's ``leaf`` node (either carry layout)."""
-    parent = carry.parent
-    batch = torch.arange(parent.shape[0], device=parent.device)
-    node = leaf[:, 0].long()
-    depth = torch.zeros_like(node)
-    for _ in range(parent.shape[1]):
-        active = node > 0
-        if not bool(active.any()):
-            break
-        depth += active.long()
-        node = torch.where(active, parent[batch, node].long(), node)
-    return depth
-
-
-def touched_bytes(prev_depth, new_depth, actions: int) -> int:
-    """Bytes one wave must move for this data: phase A writes the leaf's
-    prior column and flag and reads/writes two edge statistics per backup
-    level (plus the parent links); phase B reads the root board, per
-    descent level a node's row of prior, visits and value sums and its
-    child/terminal/expanded entries, and writes the new node and the leaf
-    board. Inputs (mixed, renormed, value) read once."""
+def touched_bytes(prev_depth, new_depth, actions: int, cells: int) -> int:
+    """Bytes one step must move for this data. Inputs read once: the net's
+    row and value, the gamma row, the root prior, the root board, the last
+    leaf's top row, the recorded path, the per-game scalars and root flags.
+    Phase A writes the leaf's prior row and flag, reads its flag and reward,
+    and reads and writes two edge statistics per path edge. Phase B reads,
+    per descent level, a node's row of prior, visits, value sums and
+    children and its two flags, and writes the path, the new node and the
+    per-game scalars. Outputs written once: renormed, mixed, the leaf board
+    and the (cells, 4) observation."""
     per_game = (
-        (actions + 1) + 2 + 6 * prev_depth            # expand + backup
-        + 64 + (new_depth + 1) * (3 * actions + 3)    # descent
-        + 6 + 3 + 64                                  # create + leaf
-        + 2 * actions + 1                             # wave inputs
+        4 * actions + 1 + 64 + (1 + prev_depth) + 3 + 2   # inputs
+        + (actions + 1) + 2 + 4 * prev_depth              # expand + backup
+        + (new_depth + 1) * (4 * actions + 2)             # descent
+        + (new_depth + 1) + 6 + 3                         # path + create
+        + 2 * actions + 64 + 4 * cells                    # outputs
     )
     return int(4 * per_game.sum().item())
+
+
+def clone_step(fm, buffers, carry):
+    """Copies of what a step updates; its inputs that no step writes (the
+    root board, the gamma draws) are shared."""
+    copied = {name: t.clone() for name, t in buffers._asdict().items()
+              if name not in ("root_board", "gamma")}
+    return buffers._replace(**copied), fm.Carry(*(t.clone() for t in carry))
+
+
+def line_fit(xs, ys):
+    """Least-squares (intercept, slope) of ys against xs."""
+    n = len(xs)
+    mx, my = sum(xs) / n, sum(ys) / n
+    sxx = sum((x - mx) ** 2 for x in xs)
+    slope = sum((x - mx) * (y - my) for x, y in zip(xs, ys)) / sxx
+    return my - slope * mx, slope
 
 
 def kernel_vs_plain(env, cfg, states, sims, gen, timed: bool,
                     kernel: str = "K1"):
     """Lockstep searches through kernel ``kernel`` (K1 or K2) and its plain
     version; returns (max_abs_err, kernel_ms, plain_ms, bound_ms,
-    carry_bound_ms)."""
+    carry_bound_ms, (intercept_ms, ms_per_level))."""
     from custom_alphazero_tpu_torch.ops import fused_mcts, fused_mcts_v2
 
     device = states.board.device
@@ -143,91 +164,101 @@ def kernel_vs_plain(env, cfg, states, sims, gen, timed: bool,
               else fused_mcts_v2.FusedConnectNSearchV2)(env, cfg, device)
     geom = search.geometry(sims)
     evaluate = dyadic_evaluate(a)
-    # K2 takes (B, 8, 8) boards, K1 (B, 64): the same bytes.
-    root_board = fused_mcts_v2.padded_board(states.board)
-    if kernel == "K2":
-        root_board = root_board.view(bsz, 8, 8)
-    carry_k = fm.init_carry(env, states, sims + 1)
-    carry_p = fm.Carry(*(t.clone() for t in carry_k))
-    root_live = ~env.is_terminal(states)
-    leaf_board = torch.zeros_like(root_board)
-    probs = torch.zeros((bsz, a), device=device)
-    value = torch.zeros((bsz, 1), device=device)
-    root_prior = torch.zeros((bsz, a), device=device)
-    names = fm.Carry._fields + ("leaf_board",)
-    snap_waves = {1, sims // 4, sims // 2, (3 * sims) // 4, sims - 1}
+    static = search.static(bsz, sims)
+    search.reset(static, states)
+    for w in range(sims):
+        static.buffers.gamma[w] = search._mcts.wave_noise(gen, bsz, device)
+    buf_k, carry_k = static.buffers, static.carry
+    buf_p, carry_p = clone_step(fm, buf_k, carry_k)
+    compared = ("root_prior", "leaf_board", "path", "counter", "renormed",
+                "mixed", "obs")
+    snap_waves = set(HEADLINE_WAVES + FIT_WAVES) if timed else set()
     snapshots = []
     max_err = 0.0
     for w in range(sims + 1):
-        gamma = search._mcts.wave_noise(gen, bsz, device) if w < sims else None
-        renormed, mixed, root_prior = search.wave_inputs(
-            w, sims, leaf_board.view(bsz, 64), carry_k.leaf_terminal, probs,
-            root_prior, root_live, gamma,
-        )
-        inputs = (mixed.contiguous(), renormed, value, root_board)
-        if timed and w in snap_waves:
-            snapshots.append((w, inputs, fm.Carry(*(t.clone()
-                                                    for t in carry_k))))
-        carry_k, leaf_board = fm.wave(w, *inputs, carry_k, geom)
-        carry_p, leaf_p = fm.wave_reference(w, *inputs, carry_p, geom)
-        for name, k_t, p_t in zip(names, list(carry_k) + [leaf_board],
-                                  list(carry_p) + [leaf_p]):
-            if not torch.equal(k_t.view(torch.int32), p_t.view(torch.int32)):
-                bad = (k_t.view(torch.int32) != p_t.view(torch.int32))
-                idx = bad.nonzero()[0].tolist()
+        if w in snap_waves:
+            snapshots.append((w, *clone_step(fm, buf_k, carry_k)))
+        fm.wave_step(buf_k, carry_k, geom)
+        fm.wave_step_reference(buf_p, carry_p, geom)
+        pairs = list(zip(fm.Carry._fields, carry_k, carry_p)) + [
+            (name, getattr(buf_k, name), getattr(buf_p, name))
+            for name in compared]
+        for name, k_t, p_t in pairs:
+            if k_t.dtype == torch.float32:
+                k_bits, p_bits = k_t.view(torch.int32), p_t.view(torch.int32)
+            else:
+                k_bits, p_bits = k_t, p_t
+            if not torch.equal(k_bits, p_bits):
+                idx = (k_bits != p_bits).nonzero()[0].tolist()
                 raise AssertionError(
                     f"wave {w}: kernel and plain version differ in {name} "
                     f"at {idx}: {k_t[tuple(idx)].item()} vs "
                     f"{p_t[tuple(idx)].item()}"
                 )
-            max_err = max(max_err, (k_t - p_t).abs().max().item())
+            max_err = max(max_err,
+                          (k_t.float() - p_t.float()).abs().max().item())
         if w < sims:
-            probs, v = evaluate(fused_mcts_v2.observe_board(
-                leaf_board, env.cfg.height, env.cfg.width))
-            value = v.reshape(bsz, 1).contiguous()
+            probs, v = evaluate(buf_k.obs)
+            for buf in (buf_k, buf_p):
+                buf.probs.copy_(probs)
+                buf.value.copy_(v.reshape(bsz, 1))
+    check(int(buf_k.counter[0]) == sims + 1,
+          f"the device wave counter reads {int(buf_k.counter[0])} after "
+          f"{sims + 1} steps")
     if not timed:
-        return max_err, None, None, None, None
+        return max_err, None, None, None, None, None
 
     # Times at the snapshot waves. The kernel: back-to-back launches on
     # copies of the carry, queued behind a GPU sleep so that host launch
     # cost stays out of the events. The plain version synchronises
     # internally; it is timed per call.
-    kernel_ms, plain_ms, bound_ms = [], [], []
+    kernel_ms, plain_ms, bound_ms, max_depth = {}, {}, {}, {}
     carry_bytes = 4 * bsz * (4 * a * (sims + 1) + 5 * (sims + 1) + 3)
-    for w, inputs, snap in snapshots:
-        copies = [fm.Carry(*(t.clone() for t in snap))
+    for w, buf, carry in snapshots:
+        copies = [clone_step(fm, buf, carry)
                   for _ in range(SNAPSHOT_LAUNCHES)]
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda.synchronize()
         torch.cuda._sleep(100_000_000)
         start.record()
         for copy in copies:
-            after, _ = fm.wave(w, *inputs, copy, geom)
+            fm.wave_step(*copy, geom)
         end.record()
         torch.cuda.synchronize()
-        kernel_ms.append(start.elapsed_time(end) / SNAPSHOT_LAUNCHES)
-        prev_depth = leaf_depth(snap, snap.leaf)
-        new_depth = leaf_depth(after, after.leaf)
-        bound_ms.append(touched_bytes(prev_depth, new_depth, a)
-                        / HBM_BYTES_PER_S * 1e3)
-        copy = fm.Carry(*(t.clone() for t in snap))
+        kernel_ms[w] = start.elapsed_time(end) / SNAPSHOT_LAUNCHES
+        prev_depth = buf.path[:, 0].long()
+        new_depth = copies[-1][0].path[:, 0].long()
+        max_depth[w] = int(new_depth.max())
+        bound_ms[w] = (touched_bytes(prev_depth, new_depth, a,
+                                     geom.height * geom.width)
+                       / HBM_BYTES_PER_S * 1e3)
+        copy = clone_step(fm, buf, carry)
         start.record()
-        fm.wave_reference(w, *inputs, copy, geom)
+        fm.wave_step_reference(*copy, geom)
         end.record()
         torch.cuda.synchronize()
-        plain_ms.append(start.elapsed_time(end))
-        log(f"  wave {w}: kernel {kernel_ms[-1]:.4f} ms, plain "
-            f"{plain_ms[-1]:.3f} ms, bound {bound_ms[-1]:.5f} ms, mean "
-            f"depth {new_depth.float().mean().item():.2f}")
-    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+        plain_ms[w] = start.elapsed_time(end)
+        log(f"  wave {w}: kernel {kernel_ms[w]:.4f} ms, plain "
+            f"{plain_ms[w]:.3f} ms, bound {bound_ms[w]:.5f} ms, leaf depth "
+            f"mean {new_depth.float().mean().item():.2f} max "
+            f"{int(new_depth.max())}, backed-up path max "
+            f"{int(prev_depth.max())}")
+    waves = sorted(kernel_ms)
+    fit = line_fit([max_depth[w] for w in waves],
+                   [kernel_ms[w] for w in waves])
+    log(f"  kernel ms against the deepest new leaf's depth, {len(waves)} "
+        f"waves: {fit[0]:.4f} ms + {fit[1]:.5f} ms per level")
+    def mean(by_wave):
+        return sum(by_wave[w] for w in HEADLINE_WAVES) / len(HEADLINE_WAVES)
+
     return (max_err, mean(kernel_ms), mean(plain_ms), mean(bound_ms),
-            2 * carry_bytes / HBM_BYTES_PER_S * 1e3)
+            2 * carry_bytes / HBM_BYTES_PER_S * 1e3, fit)
 
 
 def kernel_phase(kernel: str, gen, device):
     """Phases 3 and 6: ``kernel_vs_plain`` at 7x6 n=4 (timed) and 5x4 n=3;
     returns the 7x6 (max_abs_err over both, kernel_ms, plain_ms, bound_ms,
-    carry_bound_ms)."""
+    carry_bound_ms, fit)."""
     from custom_alphazero_tpu_torch.config import ConnectNConfig, MCTSConfig
     from custom_alphazero_tpu_torch.envs.connect_n import ConnectN
 
@@ -240,15 +271,16 @@ def kernel_phase(kernel: str, gen, device):
         t0 = time.perf_counter()
         results[geometry["width"]] = kernel_vs_plain(env, cfg, states, SIMS,
                                                      gen, timed, kernel)
-        log(f"{kernel} vs plain {geometry}: bit-equal on all 13 arrays at "
-            f"every wave of a B={BATCH}, {SIMS}-simulation search "
-            f"({time.perf_counter() - t0:.1f} s)")
-    max_err, kernel_ms, plain_ms, bound_ms, carry_bound_ms = results[7]
+        log(f"{kernel} vs plain {geometry}: bit-equal on all 19 arrays "
+            f"(carry, leaf board, renormed, mixed, root prior, observation, "
+            f"path, wave counter) at every wave of a B={BATCH}, "
+            f"{SIMS}-simulation search ({time.perf_counter() - t0:.1f} s)")
+    max_err, kernel_ms, plain_ms, bound_ms, carry_bound_ms, fit = results[7]
     max_err = max(max_err, results[5][0])
-    log(f"{kernel} wave at B={BATCH}, N={SIMS + 1}, 7x6: kernel "
+    log(f"{kernel} step at B={BATCH}, N={SIMS + 1}, 7x6: kernel "
         f"{kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, touched-bytes bound "
         f"{bound_ms:.5f} ms, carry-bytes bound {carry_bound_ms:.4f} ms")
-    return max_err, kernel_ms, plain_ms, bound_ms, carry_bound_ms
+    return max_err, kernel_ms, plain_ms, bound_ms, carry_bound_ms, fit
 
 
 def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
@@ -260,15 +292,13 @@ def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
     return torch.equal(x, y)
 
 
-def three_searches(env, states, evaluate, label: str, names) -> int:
-    """Phase 7: the named searches (K2, K1, general) from ``states`` with
-    one generator seed each; their root visits and value sums must be
-    bit-equal. Returns K2's kernel launches, all of them counted."""
+def searches_agree(env, states, evaluate, label: str, names) -> int:
+    """Phase 7: the named searches from ``states`` with one generator seed
+    each: "general", or a kernel and how its waves are launched ("K2 host",
+    "K1 graph", ...). Their root visits and value sums must be bit-equal.
+    Returns K2's kernel launches in the timed searches."""
     from custom_alphazero_tpu_torch.config import MCTSConfig
-    from custom_alphazero_tpu_torch.ops import fused_mcts
-    from custom_alphazero_tpu_torch.ops.fused_mcts_v2 import (
-        FusedConnectNSearchV2,
-    )
+    from custom_alphazero_tpu_torch.ops import fused_mcts, fused_mcts_v2
     from custom_alphazero_tpu_torch.search.mcts import MCTS
 
     cfg = MCTSConfig(simulations=SIMS, **NOISE)
@@ -276,27 +306,40 @@ def three_searches(env, states, evaluate, label: str, names) -> int:
     stats, k2_launches = {}, 0
     for name in names:
         gen = torch.Generator(device=device).manual_seed(7)
-        fused_mcts.wave.launches = 0
-        fused_mcts.wave_reference.calls = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        fused_mcts.wave_step.launches = 0
+        fused_mcts.wave_step_reference.calls = 0
+        expected = 0
         if name == "general":
             mcts = MCTS(env, cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             tree = mcts.search(states, evaluate, gen, SIMS)
             stats[name] = (mcts.root_child_visits(tree),
                            mcts.root_child_value_sums(tree))
             waves = SIMS
         else:
-            search = (fused_mcts.FusedConnectNSearch if name == "K2"
-                      else FusedConnectNSearchV2)(env, cfg)
+            kernel, mode = name.split()
+            search = (fused_mcts.FusedConnectNSearch if kernel == "K2"
+                      else fused_mcts_v2.FusedConnectNSearchV2)(env, cfg)
+            graph = mode == "graph"
+            if graph:  # capture outside the timed search
+                search.search_root_stats(states, evaluate, gen, SIMS)
+                gen.manual_seed(7)
+                fused_mcts.wave_step.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             stats[name] = search.search_root_stats(states, evaluate, gen,
-                                                   SIMS)
+                                                   SIMS, graph=graph)
             waves = SIMS + 1
+            counter = int(search.static(BATCH, SIMS).buffers.counter[0])
+            check(counter == waves, f"{label} {name}: the device wave "
+                  f"counter reads {counter}, expected {waves}")
+            if kernel == "K2":
+                expected = waves
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = fused_mcts.wave.launches
-        plain_calls = fused_mcts.wave_reference.calls
-        expected = SIMS + 1 if name == "K2" else 0
+        launches = fused_mcts.wave_step.launches
+        plain_calls = fused_mcts.wave_step_reference.calls
         check(launches == expected, f"{label} {name}: K2 launched "
               f"{launches} times, expected {expected}")
         check(plain_calls == 0, f"{label} {name}: K2's plain version ran "
@@ -371,13 +414,14 @@ def time_forward(evaluate, obs, repeats: int = 5):
     return start.elapsed_time(end) / repeats, host_ms
 
 
-def profile_ply(generate, evaluate, gen) -> None:
+def profile_ply(generate, evaluate, gen, label: str) -> None:
     """One more ply of the main path under torch.profiler: device busy time
-    by kernel, and the device's idle share of the ply's wall time."""
+    by kernel, the number of device kernels and of host launch calls per
+    wave, and the device's idle share of the ply's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    generate(evaluate, gen, BATCH)  # warm-up outside the trace
+    generate(evaluate, gen, BATCH)  # warm-up (and capture) outside the trace
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -385,22 +429,61 @@ def profile_ply(generate, evaluate, gen) -> None:
         generate(evaluate, gen, BATCH)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
+    by_name, count_by_name, host_calls = {}, {}, {}
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
+            count_by_name[evt.name] = count_by_name.get(evt.name, 0) + 1
             by_name[evt.name] = (by_name.get(evt.name, 0.0)
                                  + evt.time_range.elapsed_us() / 1e3)
+        elif evt.name in ("cudaLaunchKernel", "cudaGraphLaunch",
+                          "cuLaunchKernel", "cudaMemcpyAsync",
+                          "cudaMemsetAsync"):
+            host_calls[evt.name] = host_calls.get(evt.name, 0) + 1
     busy = sum(by_name.values())
     if not by_name:
-        log("profiled ply: device time not measured (no device events)")
+        log(f"profiled ply, {label}: device time not measured (no device "
+            f"events)")
         return
+    waves = SIMS + 1
+    kernels = sum(count_by_name.values())
     search = sum(ms for name, ms in by_name.items() if "wave_kernel" in name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log(f"profiled ply ({SIMS + 1} waves, B={BATCH}): wall {wall_ms:.1f} ms, "
-        f"device busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}; "
-        f"wave kernel {search:.2f} ms ({search / (SIMS + 1):.4f} ms/wave)")
+    log(f"profiled ply, {label} ({waves} waves, B={BATCH}): wall "
+        f"{wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share "
+        f"{1 - busy / wall_ms:.3f}; wave kernel {search:.2f} ms "
+        f"({search / waves:.4f} ms/wave); {kernels / waves:.1f} device "
+        f"kernels and copies per wave; host calls per wave: "
+        + ", ".join(f"{name} {count / waves:.1f}"
+                    for name, count in sorted(host_calls.items())))
     for name, ms in top:
-        log(f"  {ms:8.2f} ms  {name[:100]}")
+        log(f"  {ms:8.2f} ms  {count_by_name[name] / waves:5.1f} per wave  "
+            f"{name[:100]}")
+    log(f"  {len(count_by_name)} kernel and copy names; wave kernel "
+        f"launches on the device: "
+        f"{sum(n for name, n in count_by_name.items() if 'wave_kernel' in name)}")
+
+
+def launch_shapes(device) -> None:
+    """K1 at the phase-3 shapes, rebuilt with 1, 2, 4 and 8 games (warps)
+    per block: bit-equal to the plain version, and its times."""
+    from custom_alphazero_tpu_torch.config import ConnectNConfig, MCTSConfig
+    from custom_alphazero_tpu_torch.envs.connect_n import ConnectN
+    from custom_alphazero_tpu_torch.ops import _build, fused_mcts_v2
+
+    env = ConnectN(ConnectNConfig())
+    cfg = MCTSConfig(simulations=SIMS, **NOISE)
+    flags = _build.NVCC_FLAGS
+    for warps in (4, 1, 2, 8, 4):
+        _build.NVCC_FLAGS = flags + (f"-DPUCT_WARPS_PER_BLOCK={warps}",)
+        _build._LIBS.clear()
+        fused_mcts_v2._KERNELS.clear()
+        gen = torch.Generator(device=device).manual_seed(0)
+        states = random_positions(env, BATCH, 20, gen, device)
+        _, kernel_ms, _, _, _, fit = kernel_vs_plain(env, cfg, states, SIMS,
+                                                     gen, True)
+        log(f"K1, {warps} games per block: {kernel_ms:.4f} ms/wave, "
+            f"{fit[0]:.4f} ms + {fit[1]:.5f} ms per level")
+    _build.NVCC_FLAGS = flags
 
 
 def main() -> int:
@@ -408,6 +491,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    if sys.argv[1:] == ["--launch-shapes"]:
+        launch_shapes(torch.device("cuda"))
+        return 0
     from custom_alphazero_tpu_torch.config import (
         ConnectNConfig,
         MCTSConfig,
@@ -443,8 +529,8 @@ def main() -> int:
 
     # ---- 3. K1 vs its plain version -----------------------------------------
     gen = torch.Generator(device=device).manual_seed(0)
-    max_err, kernel_ms, plain_ms, bound_ms, carry_bound_ms = kernel_phase(
-        "K1", gen, device)
+    max_err, kernel_ms, plain_ms, bound_ms, carry_bound_ms, fit = (
+        kernel_phase("K1", gen, device))
 
     # ---- 4. net -------------------------------------------------------------
     params, batch_stats, meta = load_jax_checkpoint(CHECKPOINT)
@@ -484,35 +570,51 @@ def main() -> int:
     mcts_cfg = MCTSConfig(simulations=SIMS, greedy_from_move=12, **NOISE)
     sp_cfg = SelfPlayConfig(games_per_generation=BATCH, continuous=True,
                             exclude_draws=False)
-    generate = make_selfplay_fn(env, mcts_cfg, sp_cfg, MAX_PLIES)
-    fused_mcts_v2.wave.launches = 0
-    fused_mcts_v2.wave_reference.calls = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    samples, stats = generate(eval_bf16, gen, BATCH)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = fused_mcts_v2.wave.launches
-    plain_calls = fused_mcts_v2.wave_reference.calls
-    expected = MAX_PLIES * (SIMS + 1)
-    check(launches == expected,
-          f"kernel launched {launches} times, expected {expected}")
-    check(plain_calls == 0, f"plain version ran {plain_calls} times")
-    sims_per_s = MAX_PLIES * BATCH * SIMS / wall
+    # The default path replays the search's CUDA graph; graph=False launches
+    # every wave from the host. Host speed varies between calls, so the two
+    # are timed here in turns; the first run is the main path's.
+    generators = {
+        "graph": make_selfplay_fn(env, mcts_cfg, sp_cfg, MAX_PLIES),
+        "host launches": make_selfplay_fn(env, mcts_cfg, sp_cfg, MAX_PLIES,
+                                          graph=False),
+    }
     forwards = MAX_PLIES * SIMS
-    kernel_s = launches * kernel_ms / 1e3
-    net_s = forwards * net_ms / 1e3
-    log(f"self-play: {MAX_PLIES} plies x {BATCH} games x {SIMS} sims in "
-        f"{wall:.2f} s = {sims_per_s:.0f} sims/s; {launches} kernel "
-        f"launches, {plain_calls} plain-version calls")
-    log(f"  per wave {1e3 * wall / launches:.3f} ms wall; split by "
-        f"standalone device times x counts: kernel {kernel_s:.2f} s "
-        f"({100 * kernel_s / wall:.1f}%), net {net_s:.2f} s "
-        f"({100 * net_s / wall:.1f}%), rest (host work the device waits "
-        f"for, small ops) {wall - kernel_s - net_s:.2f} s "
-        f"({100 * (wall - kernel_s - net_s) / wall:.1f}%)")
+    for turn, label in enumerate(("graph", "host launches", "host launches",
+                                  "graph")):
+        fused_mcts_v2.wave_step.launches = 0
+        fused_mcts_v2.wave_step_reference.calls = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generators[label](eval_bf16, gen, BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        turn_launches = fused_mcts_v2.wave_step.launches
+        plain_calls = fused_mcts_v2.wave_step_reference.calls
+        # The first graph run also warms up and captures.
+        expected = MAX_PLIES * (SIMS + 1) + (
+            fused_mcts_v2.WARMUP_WAVES if turn == 0 else 0)
+        check(turn_launches == expected, f"{label}: kernel launched "
+              f"{turn_launches} times, expected {expected}")
+        check(plain_calls == 0, f"plain version ran {plain_calls} times")
+        kernel_s = turn_launches * kernel_ms / 1e3
+        net_s = forwards * net_ms / 1e3
+        log(f"self-play, {label}: {MAX_PLIES} plies x {BATCH} games x "
+            f"{SIMS} sims in {wall:.2f} s = "
+            f"{MAX_PLIES * BATCH * SIMS / wall:.0f} sims/s; {turn_launches} "
+            f"kernel launches, {plain_calls} plain-version calls")
+        log(f"  per wave {1e3 * wall / turn_launches:.3f} ms wall; split by "
+            f"standalone device times x counts: kernel {kernel_s:.2f} s "
+            f"({100 * kernel_s / wall:.1f}%), net {net_s:.2f} s "
+            f"({100 * net_s / wall:.1f}%), rest (host work the device waits "
+            f"for, small ops) {wall - kernel_s - net_s:.2f} s "
+            f"({100 * (wall - kernel_s - net_s) / wall:.1f}%)")
+        if turn == 0:
+            (samples, stats), launches = out, turn_launches
 
-    profile_ply(make_selfplay_fn(env, mcts_cfg, sp_cfg, 1), eval_bf16, gen)
+    profile_ply(make_selfplay_fn(env, mcts_cfg, sp_cfg, 1), eval_bf16, gen,
+                "graph")
+    profile_ply(make_selfplay_fn(env, mcts_cfg, sp_cfg, 1, graph=False),
+                eval_bf16, gen, "host launches")
 
     rows = MAX_PLIES * BATCH
     check(samples.obs.shape == (rows, 6, 7, 4), f"obs {samples.obs.shape}")
@@ -537,21 +639,22 @@ def main() -> int:
     # ---- 6. K2 vs its plain version -----------------------------------------
     k2 = kernel_phase("K2", gen, device)
 
-    # ---- 7. three searches agree --------------------------------------------
+    # ---- 7. the searches agree ----------------------------------------------
     # One algorithm per convolution, so that equal batches give equal bits.
     torch.backends.cudnn.deterministic = True
     states = random_positions(env, BATCH, 20, gen, device)
-    k2_launches = three_searches(env, states, dyadic_evaluate(7), "dyadic",
-                                 ("K2", "K1", "general"))
-    k2_launches += three_searches(env, states, eval_bf16, "c4-r5 bf16 net",
-                                  ("K2", "K1"))
+    fused = ("K2 host", "K1 host", "K2 graph", "K1 graph")
+    k2_launches = searches_agree(env, states, dyadic_evaluate(7), "dyadic",
+                                 fused + ("general",))
+    k2_launches += searches_agree(env, states, eval_bf16, "c4-r5 bf16 net",
+                                  fused)
 
     # ---- 8. general-path self-play ------------------------------------------
     general_selfplay(env, mcts_cfg, sp_cfg, eval_bf16, device)
     torch.backends.cudnn.deterministic = False
 
     # ---- 9. result lines ----------------------------------------------------
-    k2_err, k2_ms, k2_plain_ms, k2_bound_ms, k2_carry_bound_ms = k2
+    k2_err, k2_ms, k2_plain_ms, k2_bound_ms, k2_carry_bound_ms, k2_fit = k2
     check(k2_launches > 0 and k2_err == 0.0, "K2 did not run or disagreed")
     kernels = [{
         "name": "fused_mcts_v2_wave",
@@ -566,6 +669,8 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "carry_bound_ms": carry_bound_ms,
+        "chain_intercept_ms": fit[0],
+        "chain_ms_per_level": fit[1],
     }, {
         "name": "fused_mcts_wave",
         "route": "cuda",
@@ -579,6 +684,8 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "carry_bound_ms": k2_carry_bound_ms,
+        "chain_intercept_ms": k2_fit[0],
+        "chain_ms_per_level": k2_fit[1],
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,9 @@
-// Kernel K2: the fused Connect-N search wave in the v1 layout, for Hopper.
+// Kernel K2: the wave step of the fused Connect-N search in the v1
+// layout, for Hopper.
 //
 // Replaces the TPU kernel custom_alphazero_tpu/ops/fused_mcts.py::_wave_kernel
-// (built in FusedConnectNSearch._kernel_call, pallas_call at :478). Edge
+// (built in FusedConnectNSearch._kernel_call, pallas_call at :478) and the
+// XLA ops around it in the search's wave loop. Edge
 // arrays are (B, N*A): edge (node, action) of a game sits at node * A +
 // action, so a node's A edges are one contiguous 28-byte row at A = 7. The
 // TPU kernel places the leaf's prior row and the root's noisy prior on edge
@@ -23,17 +25,4 @@ struct NodeMajor {
 
 }  // namespace
 
-extern "C" int fused_mcts_wave(
-    const void* mixed, const void* renormed, const void* value,
-    const void* root_board, void* prior, void* children, void* visits,
-    void* value_sum, void* parent, void* parent_action, void* expanded,
-    void* is_terminal, void* reward, void* node_count, void* leaf,
-    void* leaf_terminal, void* leaf_board, int batch, int actions, int nodes,
-    int height, int width, int n_in_row, float c_puct, int simulations,
-    int wave, void* stream) {
-  return puct_wave::launch<NodeMajor>(
-      mixed, renormed, value, root_board, prior, children, visits, value_sum,
-      parent, parent_action, expanded, is_terminal, reward, node_count, leaf,
-      leaf_terminal, leaf_board, batch, actions, nodes, height, width,
-      n_in_row, c_puct, simulations, wave, stream);
-}
+PUCT_WAVE_ENTRY(fused_mcts_wave, NodeMajor)

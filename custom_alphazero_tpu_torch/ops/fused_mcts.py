@@ -7,9 +7,10 @@ float32 edge arrays (B, N*A), edge ``k = node * A + action``, so a node's A
 edges are one contiguous row, and (B, 8, 8) boards at the kernel's
 boundary.
 
-``wave`` launches the CUDA kernel csrc/fused_mcts.cu for CUDA tensors;
-``wave_reference`` is its plain PyTorch version, which the wrapper takes
-for CPU tensors. Where the v1 TPU kernel differs from the v2 one (the
+``wave_step`` launches the CUDA kernel csrc/fused_mcts.cu for CUDA tensors;
+``wave_step_reference`` is its plain PyTorch version, which the wrapper
+takes for CPU tensors; ``wave_reference`` is the wave alone, as the TPU
+kernel computes it. Where the v1 TPU kernel differs from the v2 one (the
 argmax over the whole edge range, lines counted on the unpadded board), the
 port follows it literally; ``fused_mcts_v2.wave_plain`` says why neither
 changes a search.
@@ -24,6 +25,7 @@ import torch
 from custom_alphazero_tpu_torch.envs.connect_n import ConnectNState
 from custom_alphazero_tpu_torch.ops import fused_mcts_v2
 from custom_alphazero_tpu_torch.ops.fused_mcts_v2 import (  # noqa: F401
+    StepBuffers,
     WaveGeometry,
     supports,
 )
@@ -47,13 +49,17 @@ class Carry(NamedTuple):
     leaf_terminal: torch.Tensor  # (B, 1)
 
 
+def _edge_rows(carry) -> Carry:
+    """The carry with its edge arrays as (B, N*A) rows."""
+    bsz = carry.parent.shape[0]
+    return Carry(*(t.view(bsz, -1) for t in carry[:4]), *carry[4:])
+
+
 def init_carry(env, root_states: ConnectNState, num_nodes: int) -> Carry:
-    """The fresh-tree carry: the root in slot 0, terminal roots marked."""
-    carry = fused_mcts_v2.init_carry(env, root_states, num_nodes)
+    """A new fresh-tree carry: the root in slot 0, terminal roots marked."""
     # Fresh edge arrays hold one value each (0 or -1), so only their shape
     # differs between the two layouts.
-    bsz = root_states.board.shape[0]
-    return Carry(*(t.reshape(bsz, -1) for t in carry[:4]), *carry[4:])
+    return _edge_rows(fused_mcts_v2.init_carry(env, root_states, num_nodes))
 
 
 def _as_v2(carry: Carry) -> fused_mcts_v2.Carry:
@@ -68,7 +74,6 @@ def wave_reference(wave: int, mixed, renormed, value, root_board,
     """One wave in plain PyTorch: updates ``carry`` in place (the TPU
     kernel aliases it) and returns ``(carry, leaf_board)``, boards
     (B, 8, 8)."""
-    wave_reference.calls += 1
     bsz = root_board.shape[0]
     leaf_board = fused_mcts_v2.wave_plain(
         wave, mixed, renormed, value, root_board.reshape(bsz, _PH * _PW),
@@ -77,26 +82,32 @@ def wave_reference(wave: int, mixed, renormed, value, root_board,
     return carry, leaf_board.view(bsz, _PH, _PW)
 
 
-wave_reference.calls = 0
+def wave_step_reference(buffers: StepBuffers, carry: Carry,
+                        geom: WaveGeometry) -> None:
+    """The plain PyTorch version of kernel K2's step (boards (B, 8, 8))."""
+    wave_step_reference.calls += 1
+    fused_mcts_v2.wave_step_plain(buffers, _as_v2(carry), geom, v1_rules=True)
 
 
-def wave(wave_idx: int, mixed, renormed, value, root_board, carry: Carry,
-         geom: WaveGeometry):
-    """One wave: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Updates ``carry`` in place; returns (carry, leaf_board)."""
-    if root_board.device.type == "cpu":
-        return wave_reference(wave_idx, mixed, renormed, value, root_board,
-                              carry, geom)
+wave_step_reference.calls = 0
+
+
+def wave_step(buffers: StepBuffers, carry: Carry, geom: WaveGeometry,
+              record: bool = False) -> None:
+    """One step: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Updates ``buffers`` and ``carry`` in place. ``record``: as
+    in ``fused_mcts_v2.wave_step``."""
+    if buffers.root_board.device.type == "cpu":
+        return wave_step_reference(buffers, carry, geom)
     bsz, n = carry.parent.shape
-    leaf_board = fused_mcts_v2.launch(
-        "fused_mcts", wave_idx, mixed, renormed, value, root_board, carry,
-        geom, (bsz, n * mixed.shape[-1]),
-    )
-    wave.launches += 1
-    return carry, leaf_board
+    fused_mcts_v2.launch("fused_mcts", buffers, carry, geom,
+                         (bsz, n * buffers.probs.shape[-1]))
+    if not record:
+        wave_step.launches += 1
 
 
-wave.launches = 0
+# Kernel launches: eager ones and, in the search, replays of a captured one.
+wave_step.launches = 0
 
 
 class FusedConnectNSearch(fused_mcts_v2.FusedConnectNSearchV2):
@@ -104,15 +115,11 @@ class FusedConnectNSearch(fused_mcts_v2.FusedConnectNSearchV2):
     v1 kernel. ``search_root_stats`` gives what ``MCTS.search`` +
     ``root_child_visits`` / ``root_child_value_sums`` give, bit for bit."""
 
-    def _init_carry(self, root_states: ConnectNState, num_nodes: int):
-        return init_carry(self.env, root_states, num_nodes)
+    _wave_step = staticmethod(wave_step)
+    _board_shape = (_PH, _PW)
 
-    def _wave(self, wave_idx: int, mixed, renormed, value, root_board,
-              carry, geom: WaveGeometry):
-        bsz = root_board.shape[0]
-        carry, leaf_board = wave(wave_idx, mixed, renormed, value,
-                                 root_board.view(bsz, _PH, _PW), carry, geom)
-        return carry, leaf_board.view(bsz, _PH * _PW)
+    def _empty_carry(self, bsz: int, num_nodes: int):
+        return _edge_rows(super()._empty_carry(bsz, num_nodes))
 
     def _root_stats(self, carry) -> Tuple[torch.Tensor, torch.Tensor]:
         a = self.env.num_actions

@@ -1,28 +1,38 @@
 """Fused Connect-N search, (games, actions, nodes) layout, on the card.
 
 The port of custom_alphazero_tpu/ops/fused_mcts_v2.py. One search runs
-``simulations + 1`` software-pipelined waves; each wave
+``simulations + 1`` software-pipelined waves; each wave is one step and one
+net forward. A step (``wave_step``: the CUDA kernel csrc/fused_mcts_v2.cu
+on the card, ``wave_step_reference`` for CPU tensors)
 
 1. builds the legal mask of the previous wave's leaf from its board's top
    row and ``leaf_terminal``, and renormalises the net's priors with it;
 2. captures the root prior at wave 1 and mixes in this wave's root noise;
-3. runs the wave (``wave``: the CUDA kernel csrc/fused_mcts_v2.cu on the
-   card, ``wave_reference`` for CPU tensors): phase A expands and backs up
-   the previous leaf, phase B selects and creates this wave's leaf;
-4. observes the new leaf board and evaluates it with the net.
+3. runs the wave: phase A expands and backs up the previous leaf, phase B
+   selects and creates this wave's leaf;
+4. observes the new leaf board for the net.
+
+In the JAX package steps 1, 2 and 4 are XLA ops that ``jit`` fuses around
+the Pallas wave kernel inside one ``fori_loop``. Here they are part of the
+kernel, the wave index lives on the device, and the search replays one
+captured CUDA graph (step + net) per wave, so the host does no per-wave
+work. The plain version composes the separate pieces (``wave_inputs``,
+``wave_plain``, ``observe_board``), which stay the CPU path and what the
+tests hold against JAX.
 
 The last (drain) wave only backs up; its net forward would be unused and
 is skipped. The carry keeps the JAX kernel's float32 arrays, so every carry
 array can be compared bit for bit across the three implementations.
 
 The v1 search (ops/fused_mcts.py, kernel K2) runs this search loop, plain
-wave (``wave_plain``) and launcher (``launch``) on its own carry layout.
+step (``wave_step_plain``) and launcher (``launch``) on its own carry
+layout.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,7 +44,11 @@ from custom_alphazero_tpu_torch.envs.connect_n import (
 )
 from custom_alphazero_tpu_torch.ops import _build
 from custom_alphazero_tpu_torch.runtime.evaluate import EvaluateFn
-from custom_alphazero_tpu_torch.search.mcts import MCTS
+from custom_alphazero_tpu_torch.search.mcts import (
+    MCTS,
+    renormalize,
+    root_noisy_prior,
+)
 
 _CONTINUE = 0
 _NEW = 1
@@ -44,6 +58,9 @@ _TERMINAL = 3
 _PH = 8
 _PW = 8
 _CELLS = _PH * _PW  # 64
+# Waves run on a side stream before a capture, so that the libraries under
+# the evaluator have made their one-time choices and allocations.
+WARMUP_WAVES = 3
 
 
 class Carry(NamedTuple):
@@ -67,6 +84,52 @@ class WaveGeometry(NamedTuple):
     n_in_row: int
     c_puct: float
     simulations: int
+    noise_fraction: float = 0.0  # weight of the root noise, where drawn
+
+
+class StepBuffers(NamedTuple):
+    """What a step reads and writes beside the carry. Boards are (B, 64)
+    here and (B, 8, 8) in the v1 search: the same bytes."""
+
+    probs: torch.Tensor       # (B, A) in: the net's priors of the last leaf
+    value: torch.Tensor       # (B, 1) in: the net's value of the last leaf
+    gamma: Optional[torch.Tensor]  # (S, B, A) in: root-noise draws, or None
+    root_board: torch.Tensor  # in: padded root boards
+    root_prior: torch.Tensor  # (B, A) in/out: captured at wave 1
+    leaf_board: torch.Tensor  # in/out: the last leaf's board, then this one's
+    path: torch.Tensor        # (B, P) int32 in/out: [:, 0] edges on the
+    #                           leaf's path, then node * A + action of each
+    counter: torch.Tensor     # (2,) int32 in/out: the wave index; the
+    #                           kernel's count of finished blocks
+    renormed: torch.Tensor    # (B, A) out
+    mixed: torch.Tensor       # (B, A) out
+    obs: torch.Tensor         # (B, H, W, 4) out: what the net reads
+
+
+def path_stride(geom: WaveGeometry, num_nodes: int) -> int:
+    """Row length of ``StepBuffers.path``: the count and one entry for each
+    edge of the deepest possible path."""
+    return 1 + min(num_nodes, geom.height * geom.width + 1)
+
+
+def new_buffers(bsz: int, num_actions: int, geom: WaveGeometry, noise: bool,
+                device, board_shape=(_CELLS,)) -> StepBuffers:
+    """Zeroed step buffers of a search of ``geom.simulations`` waves."""
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    a, sims = num_actions, geom.simulations
+    return StepBuffers(
+        probs=zeros(bsz, a), value=zeros(bsz, 1),
+        gamma=zeros(sims, bsz, a) if noise else None,
+        root_board=zeros(bsz, *board_shape), root_prior=zeros(bsz, a),
+        leaf_board=zeros(bsz, *board_shape),
+        path=zeros(bsz, path_stride(geom, sims + 1), dtype=torch.int32),
+        counter=zeros(2, dtype=torch.int32),
+        renormed=zeros(bsz, a), mixed=zeros(bsz, a),
+        obs=zeros(bsz, geom.height, geom.width, 4),
+    )
 
 
 def supports(env, cfg: MCTSConfig) -> bool:
@@ -115,20 +178,23 @@ def wave_reference(wave: int, mixed, renormed, value, root_board,
                    carry: Carry, geom: WaveGeometry):
     """One wave in plain PyTorch: updates ``carry`` in place (the TPU
     kernel aliases it) and returns ``(carry, leaf_board)``."""
-    wave_reference.calls += 1
     leaf_board = wave_plain(wave, mixed, renormed, value, root_board, carry,
                             geom, v1_rules=False)
     return carry, leaf_board
 
 
-wave_reference.calls = 0
-
-
 def wave_plain(wave: int, mixed, renormed, value, root_board, carry: Carry,
-               geom: WaveGeometry, v1_rules: bool) -> torch.Tensor:
+               geom: WaveGeometry, v1_rules: bool,
+               path: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The wave of both fused searches, in plain PyTorch, on a carry whose
     edge arrays are (B, A, N) (views are fine: they are updated in place).
     Returns the (B, 64) leaf board.
+
+    path: optional (B, P) int32 record of the descent, updated in place:
+    ``path[:, 0]`` the number of edges from the root to the new leaf, then
+    ``node * A + action`` of each edge, the created one last. The kernel
+    backs the next wave up along it; here the backup follows the parent
+    chain, which visits the same edges.
 
     v1_rules: the v1 kernel's two differences. Its argmax runs over the
     whole (N*A) edge range, so a node row with every action masked reads
@@ -191,6 +257,7 @@ def wave_plain(wave: int, mixed, renormed, value, root_board, carry: Carry,
     node = torch.zeros(bsz, dtype=torch.long, device=dev)
     action = torch.zeros(bsz, dtype=torch.long, device=dev)
     code = torch.full((bsz,), _CONTINUE, dtype=torch.long, device=dev)
+    depth = torch.zeros(bsz, dtype=torch.long, device=dev)
     for _ in range(n):
         cont = code == _CONTINUE
         if not bool(cont.any()):
@@ -213,6 +280,11 @@ def wave_plain(wave: int, mixed, renormed, value, root_board, carry: Carry,
         board = torch.where(descend[:, None], -placed, board)
         heights = torch.where(descend[:, None], new_heights, heights)
         full = torch.where(descend, full + 1.0, full)
+        if path is not None:
+            rows = batch[descend]
+            path[rows, 1 + depth[descend]] = (
+                node[descend] * a + action[descend]).int()
+        depth = depth + descend.long()
         node = torch.where(descend, child.long(), node)
         code = new_code
 
@@ -235,6 +307,9 @@ def wave_plain(wave: int, mixed, renormed, value, root_board, carry: Carry,
     is_terminal[rows, slots] = child_term[new].float()
     reward[rows, slots] = win[new].float()
     node_count += new.float()[:, None]
+    if path is not None:
+        path[rows, 1 + depth[new]] = (node[new] * a + action[new]).int()
+        path[:, 0] = (depth + new.long()).int()
 
     node_term = is_terminal[batch, node] > 0.0
     leaf[:, 0] = torch.where(new, slot, node.float())
@@ -243,97 +318,7 @@ def wave_plain(wave: int, mixed, renormed, value, root_board, carry: Carry,
 
 
 # ---------------------------------------------------------------------------
-# The kernel's wrapper
-# ---------------------------------------------------------------------------
-
-_POINTER_ARGS = 17  # 4 inputs, 12 carry arrays, the leaf board
-_KERNELS = {}
-
-
-def _kernel(name: str):
-    """The C entry point ``<name>_wave`` of csrc/<name>.cu, built and loaded
-    on first use."""
-    fn = _KERNELS.get(name)
-    if fn is None:
-        fn = getattr(_build.load(name), f"{name}_wave")
-        fn.argtypes = (
-            [ctypes.c_void_p] * _POINTER_ARGS
-            + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2
-            + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-        _KERNELS[name] = fn
-    return fn
-
-
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected float32")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
-def launch(name: str, wave_idx: int, mixed, renormed, value, root_board,
-           carry, geom: WaveGeometry, edge_shape) -> torch.Tensor:
-    """Check the wave's tensors and launch kernel ``name`` on CUDA tensors
-    (any other device raises). The carry, with edge arrays of
-    ``edge_shape``, is updated in place; returns the leaf board, shaped
-    like ``root_board``."""
-    device = root_board.device
-    if device.type != "cuda":
-        raise ValueError(f"no wave kernel for device {device}")
-    bsz, n = carry.parent.shape
-    a = mixed.shape[-1]
-    if a > _PW:
-        raise ValueError(f"the wave kernel takes at most {_PW} actions")
-    # The board is (B, 64) or (B, 8, 8): the same bytes, row-major.
-    board_shape = (bsz, _CELLS) if root_board.dim() == 2 else (bsz, _PH, _PW)
-    inputs = (("mixed", mixed, (bsz, a)), ("renormed", renormed, (bsz, a)),
-              ("value", value, (bsz, 1)),
-              ("root_board", root_board, board_shape))
-    shapes = [edge_shape] * 4 + [(bsz, n)] * 5 + [(bsz, 1)] * 3
-    for label, t, shape in inputs:
-        _check(label, t, shape, device)
-    for label, t, shape in zip(Carry._fields, carry, shapes):
-        _check(label, t, shape, device)
-    leaf_board = torch.empty_like(root_board)
-    ptrs = [t.data_ptr() for _, t, _ in inputs]
-    ptrs += [t.data_ptr() for t in carry] + [leaf_board.data_ptr()]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _kernel(name)(
-            *ptrs, bsz, a, n, geom.height, geom.width, geom.n_in_row,
-            geom.c_puct, geom.simulations, wave_idx, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"{name} wave kernel launch failed: cudaError {rc}")
-    return leaf_board
-
-
-def wave(wave_idx: int, mixed, renormed, value, root_board, carry: Carry,
-         geom: WaveGeometry):
-    """One wave: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. Updates ``carry`` in place; returns (carry, leaf_board)."""
-    if root_board.device.type == "cpu":
-        return wave_reference(wave_idx, mixed, renormed, value, root_board,
-                              carry, geom)
-    bsz, a, n = carry.prior.shape
-    leaf_board = launch("fused_mcts_v2", wave_idx, mixed, renormed, value,
-                        root_board, carry, geom, (bsz, a, n))
-    wave.launches += 1
-    return carry, leaf_board
-
-
-wave.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# The search
+# The step: wave inputs + wave + observation
 # ---------------------------------------------------------------------------
 
 def padded_board(board: torch.Tensor) -> torch.Tensor:
@@ -356,42 +341,218 @@ def observe_board(leaf_board: torch.Tensor, height: int,
     )
 
 
+def wave_inputs(mcts_wave: int, geom: WaveGeometry, leaf_board,
+                leaf_terminal, probs, root_prior, root_live, gamma):
+    """(renormed, mixed, root_prior) for one wave: the legal mask of the
+    previous leaf, renormalised priors, the root prior captured at wave 1,
+    and the root mix with this wave's (B, A) gamma draw (None: no noise;
+    the drain wave selects nothing, so its root mix is never read)."""
+    legal = (leaf_board[:, :geom.width] == 0) & (leaf_terminal == 0)
+    renormed = renormalize(probs, legal)
+    if mcts_wave == 1:
+        root_prior = torch.where(root_live[:, None], renormed, root_prior)
+    if gamma is not None and mcts_wave < geom.simulations:
+        mixed = root_noisy_prior(root_prior, gamma, geom.noise_fraction)
+    else:
+        mixed = root_prior
+    return renormed, mixed, root_prior
+
+
+def wave_step_plain(buffers: StepBuffers, carry: Carry, geom: WaveGeometry,
+                    v1_rules: bool) -> None:
+    """One step of both fused searches in plain PyTorch: ``wave_inputs``,
+    ``wave_plain`` and ``observe_board`` on the buffers of the kernel,
+    updated in place like the carry ((B, A, N) edge arrays or views)."""
+    wave = int(buffers.counter[0])
+    bsz = buffers.probs.shape[0]
+    leaf_board = buffers.leaf_board.view(bsz, _CELLS)
+    noisy = buffers.gamma is not None and wave < geom.simulations
+    renormed, mixed, root_prior = wave_inputs(
+        wave, geom, leaf_board, carry.leaf_terminal, buffers.probs,
+        buffers.root_prior, ~(carry.is_terminal[:, 0] > 0.0),
+        buffers.gamma[wave] if noisy else None,
+    )
+    new_leaf_board = wave_plain(
+        wave, mixed, renormed, buffers.value,
+        buffers.root_board.view(bsz, _CELLS), carry, geom, v1_rules,
+        path=buffers.path,
+    )
+    buffers.renormed.copy_(renormed)
+    buffers.mixed.copy_(mixed)
+    buffers.root_prior.copy_(root_prior)
+    leaf_board.copy_(new_leaf_board)
+    buffers.obs.copy_(observe_board(new_leaf_board, geom.height, geom.width))
+    buffers.counter[0] += 1
+
+
+def wave_step_reference(buffers: StepBuffers, carry: Carry,
+                        geom: WaveGeometry) -> None:
+    """The plain PyTorch version of kernel K1's step."""
+    wave_step_reference.calls += 1
+    wave_step_plain(buffers, carry, geom, v1_rules=False)
+
+
+wave_step_reference.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# The kernel's wrapper
+# ---------------------------------------------------------------------------
+
+_KERNELS = {}
+
+
+def _kernel(name: str):
+    """The C entry point ``<name>_wave`` of csrc/<name>.cu, built and loaded
+    on first use."""
+    fn = _KERNELS.get(name)
+    if fn is None:
+        fn = getattr(_build.load(name), f"{name}_wave")
+        fn.argtypes = (
+            [ctypes.c_void_p] * (len(StepBuffers._fields) + len(Carry._fields))
+            + [ctypes.c_int] * 8 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        _KERNELS[name] = fn
+    return fn
+
+
+def _check(name: str, t: torch.Tensor, shape, device,
+           dtype=torch.float32) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def launch(name: str, buffers: StepBuffers, carry, geom: WaveGeometry,
+           edge_shape) -> None:
+    """Check the step's tensors and launch kernel ``name`` on CUDA tensors
+    (any other device raises). The buffers and the carry, with edge arrays
+    of ``edge_shape``, are updated in place."""
+    device = buffers.root_board.device
+    if device.type != "cuda":
+        raise ValueError(f"no wave kernel for device {device}")
+    bsz, n = carry.parent.shape
+    a = buffers.probs.shape[-1]
+    if a > _PW or a != geom.width:
+        raise ValueError(f"the wave kernel takes one action per column, at "
+                         f"most {_PW}; got {a} actions, width {geom.width}")
+    # The boards are (B, 64) or (B, 8, 8): the same bytes, row-major.
+    board_shape = ((bsz, _CELLS) if buffers.root_board.dim() == 2
+                   else (bsz, _PH, _PW))
+    stride = path_stride(geom, n)
+    shapes = dict(
+        probs=(bsz, a), value=(bsz, 1), gamma=(geom.simulations, bsz, a),
+        root_board=board_shape, root_prior=(bsz, a), leaf_board=board_shape,
+        path=(bsz, stride), counter=(2,), renormed=(bsz, a), mixed=(bsz, a),
+        obs=(bsz, geom.height, geom.width, 4),
+    )
+    ptrs = []
+    for label, t in zip(StepBuffers._fields, buffers):
+        if t is None:  # gamma: no root noise
+            ptrs.append(None)
+            continue
+        dtype = torch.int32 if label in ("path", "counter") else torch.float32
+        _check(label, t, shapes[label], device, dtype)
+        ptrs.append(t.data_ptr())
+    carry_shapes = [edge_shape] * 4 + [(bsz, n)] * 5 + [(bsz, 1)] * 3
+    for label, t, shape in zip(Carry._fields, carry, carry_shapes):
+        _check(label, t, shape, device)
+        ptrs.append(t.data_ptr())
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _kernel(name)(
+            *ptrs, bsz, a, n, geom.height, geom.width, geom.n_in_row,
+            geom.simulations, stride, geom.c_puct, geom.noise_fraction,
+            1.0 - geom.noise_fraction, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{name} wave kernel launch failed: cudaError {rc}")
+
+
+def wave_step(buffers: StepBuffers, carry: Carry, geom: WaveGeometry,
+              record: bool = False) -> None:
+    """One step: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. Updates ``buffers`` and ``carry`` in place.
+
+    record: the call is made inside a CUDA graph capture, where the launch
+    is recorded and nothing runs: it is not counted. Who replays the graph
+    counts each replay."""
+    if buffers.root_board.device.type == "cpu":
+        return wave_step_reference(buffers, carry, geom)
+    bsz, n = carry.parent.shape
+    launch("fused_mcts_v2", buffers, carry, geom,
+           (bsz, buffers.probs.shape[-1], n))
+    if not record:
+        wave_step.launches += 1
+
+
+# Kernel launches: eager ones and, in the search, replays of a captured one.
+wave_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The search
+# ---------------------------------------------------------------------------
+
+def empty_carry(bsz: int, num_actions: int, num_nodes: int, device) -> Carry:
+    """An unfilled carry; ``fill_carry`` makes it a fresh tree."""
+    a, n = num_actions, num_nodes
+
+    def empty(*shape):
+        return torch.empty((bsz,) + shape, dtype=torch.float32, device=device)
+
+    return Carry(*(empty(a, n) for _ in range(4)),
+                 *(empty(n) for _ in range(5)),
+                 *(empty(1) for _ in range(3)))
+
+
+def fill_carry(carry, env: ConnectN, root_states: ConnectNState) -> None:
+    """Make ``carry`` (either layout) the fresh-tree carry, in place: the
+    root in slot 0, terminal roots marked."""
+    root_terminal = env.is_terminal(root_states).float()
+    for t in (carry.prior, carry.visits, carry.value_sum, carry.parent,
+              carry.parent_action, carry.expanded, carry.is_terminal,
+              carry.reward, carry.leaf):
+        t.zero_()
+    carry.children.fill_(-1.0)
+    carry.parent[:, 0] = -1.0
+    carry.is_terminal[:, 0] = root_terminal
+    carry.reward[:, 0] = -env.terminal_value(root_states)
+    carry.node_count.fill_(1.0)
+    carry.leaf_terminal[:, 0] = root_terminal
+
+
 def init_carry(env: ConnectN, root_states: ConnectNState,
                num_nodes: int) -> Carry:
-    """The fresh-tree carry: the root in slot 0, terminal roots marked."""
-    bsz = root_states.board.shape[0]
-    a, n = env.num_actions, num_nodes
-    dev = root_states.board.device
-    root_terminal = env.is_terminal(root_states).float()
-    root_value = env.terminal_value(root_states)
+    """A new fresh-tree carry: the root in slot 0, terminal roots marked."""
+    carry = empty_carry(root_states.board.shape[0], env.num_actions,
+                        num_nodes, root_states.board.device)
+    fill_carry(carry, env, root_states)
+    return carry
 
-    def zeros(*shape):
-        return torch.zeros((bsz,) + shape, dtype=torch.float32, device=dev)
 
-    parent = zeros(n)
-    parent[:, 0] = -1.0
-    is_terminal = zeros(n)
-    is_terminal[:, 0] = root_terminal
-    reward = zeros(n)
-    reward[:, 0] = -root_value
-    return Carry(
-        prior=zeros(a, n),
-        children=torch.full((bsz, a, n), -1.0, device=dev),
-        visits=zeros(a, n),
-        value_sum=zeros(a, n),
-        parent=parent,
-        parent_action=zeros(n),
-        expanded=zeros(n),
-        is_terminal=is_terminal,
-        reward=reward,
-        node_count=torch.ones((bsz, 1), device=dev),
-        leaf=zeros(1),
-        leaf_terminal=root_terminal[:, None].clone(),
-    )
+class _Static:
+    """The device memory of searches of one (batch, simulations): the carry,
+    the step buffers, and the captured wave per evaluator."""
+
+    def __init__(self, carry, buffers: StepBuffers):
+        self.carry = carry
+        self.buffers = buffers
+        self.graphs: Dict[EvaluateFn, "torch.cuda.CUDAGraph"] = {}
 
 
 class FusedConnectNSearchV2:
-    """Fresh-tree PUCT search of gravity Connect-N boards up to 8x8."""
+    """Fresh-tree PUCT search of gravity Connect-N boards up to 8x8.
+
+    The search owns its device memory per (batch, simulations), refills it
+    in place at the start of a search, and returns copies."""
 
     def __init__(self, env: ConnectN, cfg: MCTSConfig = MCTSConfig(),
                  device=None):
@@ -405,84 +566,134 @@ class FusedConnectNSearchV2:
         self.cfg = cfg
         self.device = resolve_device(device)
         self._mcts = MCTS(env, cfg)
+        self._static: Dict[Tuple[int, int], _Static] = {}
 
     def geometry(self, simulations: int) -> WaveGeometry:
         c = self.env.cfg
+        fraction = self.cfg.dirichlet_fraction if self.cfg.use_dirichlet else 0.0
         return WaveGeometry(c.height, c.width, c.n, self.cfg.c_puct,
-                            simulations)
+                            simulations, fraction)
 
     def wave_inputs(self, mcts_wave: int, simulations: int, leaf_board,
                     leaf_terminal, probs, root_prior, root_live, gamma):
-        """(renormed, mixed, root_prior) for one wave: the legal mask of
-        the previous leaf, renormalised priors, the root prior captured at
-        wave 1, and the root mix with this wave's (B, A) gamma draw."""
-        legal = (leaf_board[:, :self.env.cfg.width] == 0) & (
-            leaf_terminal == 0
-        )
-        renormed = self._mcts._renormalize(probs, legal)
-        if mcts_wave == 1:
-            root_prior = torch.where(root_live[:, None], renormed,
-                                     root_prior)
-        # The drain wave selects nothing, so its root mix is never read.
-        if mcts_wave < simulations:
-            mixed = self._mcts._root_noisy_prior(root_prior, gamma)
-        else:
-            mixed = root_prior
-        return renormed, mixed, root_prior
+        """``wave_inputs`` of this search's geometry."""
+        return wave_inputs(mcts_wave, self.geometry(simulations), leaf_board,
+                           leaf_terminal, probs, root_prior, root_live, gamma)
 
-    # The layout of the carry: the v1 search overrides these three.
+    # The layout of the carry and the kernel: the v1 search overrides these.
 
-    def _init_carry(self, root_states: ConnectNState, num_nodes: int):
-        return init_carry(self.env, root_states, num_nodes)
+    _wave_step = staticmethod(wave_step)
+    _board_shape = (_CELLS,)
 
-    def _wave(self, wave_idx: int, mixed, renormed, value, root_board,
-              carry, geom: WaveGeometry):
-        return wave(wave_idx, mixed, renormed, value, root_board, carry, geom)
+    def _empty_carry(self, bsz: int, num_nodes: int):
+        return empty_carry(bsz, self.env.num_actions, num_nodes, self.device)
 
     def _root_stats(self, carry) -> Tuple[torch.Tensor, torch.Tensor]:
         return (carry.visits[:, :, 0].to(torch.int32),
                 carry.value_sum[:, :, 0].clone())
 
+    # The search's device memory.
+
+    def static(self, bsz: int, simulations: int) -> _Static:
+        """The carry and step buffers of (bsz, simulations) searches, made
+        on first use."""
+        static = self._static.get((bsz, simulations))
+        if static is None:
+            static = _Static(
+                self._empty_carry(bsz, simulations + 1),
+                new_buffers(bsz, self.env.num_actions,
+                            self.geometry(simulations),
+                            self.cfg.use_dirichlet, self.device,
+                            self._board_shape),
+            )
+            self._static[(bsz, simulations)] = static
+        return static
+
+    def reset(self, static: _Static, root_states: ConnectNState) -> None:
+        """A fresh tree at wave 0 from ``root_states``, in place. The root
+        noise (``buffers.gamma``) stays: it is input, drawn per search."""
+        fill_carry(static.carry, self.env, root_states)
+        buffers = static.buffers
+        for t in (buffers.probs, buffers.value, buffers.root_prior,
+                  buffers.leaf_board, buffers.path, buffers.counter):
+            t.zero_()
+        buffers.root_board.copy_(
+            padded_board(root_states.board).view_as(buffers.root_board))
+
+    def _evaluate(self, static: _Static, evaluate_fn: EvaluateFn) -> None:
+        """The net on the step's observation, into the next step's input."""
+        probs, value = evaluate_fn(static.buffers.obs)
+        static.buffers.probs.copy_(probs)
+        static.buffers.value.copy_(value.reshape(-1, 1))
+
+    def _captured_wave(self, static: _Static, evaluate_fn: EvaluateFn,
+                       geom: WaveGeometry, root_states: ConnectNState):
+        """The CUDA graph of one wave (the step kernel, then the evaluator
+        into the step's inputs) on ``static``'s memory, captured on first
+        use per evaluator. A capture runs real waves first, so the tree is
+        reset after it. An evaluator that cannot be captured (it waits for
+        the device, or computes on the host) makes the capture raise."""
+        graph = static.graphs.get(evaluate_fn)
+        if graph is not None:
+            return graph
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_WAVES):
+                self._wave_step(static.buffers, static.carry, geom)
+                self._evaluate(static, evaluate_fn)
+        current.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._wave_step(static.buffers, static.carry, geom, record=True)
+            self._evaluate(static, evaluate_fn)
+        self.reset(static, root_states)
+        static.graphs[evaluate_fn] = graph
+        return graph
+
     def search_root_stats(
         self, root_states: ConnectNState, evaluate_fn: EvaluateFn,
         generator: Optional[torch.Generator], simulations: int,
-        gamma: Optional[torch.Tensor] = None,
+        gamma: Optional[torch.Tensor] = None, graph: Optional[bool] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Root child visits (B, A) int32 and value sums (B, A) float32.
 
-        generator: draws the root noise when ``cfg.use_dirichlet``.
+        generator: draws the root noise when ``cfg.use_dirichlet``: one
+            (B, A) Gamma draw per simulation, in order, before the waves.
         gamma: optional (S, B, A) per-wave Gamma draws used instead of the
-            generator (tests feed JAX's draws through it)."""
-        env = self.env
+            generator (tests feed JAX's draws through it).
+        graph: on the card, replay one captured CUDA graph per wave (the
+            default, None or True) or launch every wave from the host
+            (False: for an evaluator that cannot be captured, and for
+            comparison). CPU searches have no graph; True raises there."""
         bsz = root_states.board.shape[0]
-        a = env.num_actions
         dev = root_states.board.device
         if dev != self.device:
             raise ValueError(f"root states on {dev}, search on {self.device}")
+        if graph is None:
+            graph = dev.type == "cuda"
+        elif graph and dev.type != "cuda":
+            raise ValueError(f"no CUDA graph on device {dev}")
         geom = self.geometry(simulations)
-        root_board = padded_board(root_states.board)
-        carry = self._init_carry(root_states, simulations + 1)
-        root_live = ~env.is_terminal(root_states)
-        plan = None if gamma is not None else self._mcts.noise_plan(generator)
+        static = self.static(bsz, simulations)
+        self.reset(static, root_states)
+        if self.cfg.use_dirichlet:
+            plan = None if gamma is not None else self._mcts.noise_plan(
+                generator)
+            for w in range(simulations):
+                static.buffers.gamma[w] = self._mcts.root_gamma(
+                    plan, gamma, w, bsz, dev)
 
-        leaf_board = torch.zeros((bsz, _CELLS), device=dev)
-        probs = torch.zeros((bsz, a), device=dev)
-        value = torch.zeros((bsz, 1), device=dev)
-        root_prior = torch.zeros((bsz, a), device=dev)
-        for w in range(simulations + 1):
-            # The drain wave selects nothing and draws no noise.
-            gamma_w = (None if w >= simulations
-                       else self._mcts.root_gamma(plan, gamma, w, bsz, dev))
-            renormed, mixed, root_prior = self.wave_inputs(
-                w, simulations, leaf_board, carry.leaf_terminal, probs,
-                root_prior, root_live, gamma_w,
-            )
-            carry, leaf_board = self._wave(w, mixed.contiguous(), renormed,
-                                           value, root_board, carry, geom)
-            if w < simulations:
-                probs, v = evaluate_fn(
-                    observe_board(leaf_board, env.cfg.height, env.cfg.width)
-                )
-                probs = probs.float()
-                value = v.float().reshape(bsz, 1).contiguous()
-        return self._root_stats(carry)
+        if graph:
+            wave = self._captured_wave(static, evaluate_fn, geom, root_states)
+            for _ in range(simulations):
+                wave.replay()
+                self._wave_step.launches += 1
+        else:
+            for _ in range(simulations):
+                self._wave_step(static.buffers, static.carry, geom)
+                self._evaluate(static, evaluate_fn)
+        # The drain wave: back up the last leaf; no net.
+        self._wave_step(static.buffers, static.carry, geom)
+        return self._root_stats(static.carry)

@@ -60,13 +60,17 @@ GenerateFn = Callable[[EvaluateFn, torch.Generator, int],
 
 def make_selfplay_fn(env: ConnectN, mcts_cfg: MCTSConfig,
                      sp_cfg: SelfPlayConfig, max_plies: int,
-                     device=None, fused: bool = None) -> GenerateFn:
+                     device=None, fused: bool = None,
+                     graph: bool = None) -> GenerateFn:
     """Build ``generate(evaluate_fn, generator, batch_size)``.
 
     fused: search with the fused v2 kernel; None (the default) does so
     whenever ``fused_mcts_v2.supports`` the env and config, and otherwise
     runs the general ``MCTS.search``. Subtree reuse and Gumbel search are
-    not ported and raise NotImplementedError."""
+    not ported and raise NotImplementedError.
+    graph: the fused search's ``graph`` argument: None (the default)
+    replays one captured CUDA graph per wave on the card; False launches
+    every wave from the host, for an evaluator that cannot be captured."""
     if mcts_cfg.reuse_tree:
         raise NotImplementedError(
             "mcts.reuse_tree is not ported yet (ROADMAP.md queue 1, "
@@ -86,8 +90,8 @@ def make_selfplay_fn(env: ConnectN, mcts_cfg: MCTSConfig,
                                                            device)
 
         def search_visits(states, evaluate_fn, generator):
-            return fused_search.search_root_stats(states, evaluate_fn,
-                                                  generator, sims)[0]
+            return fused_search.search_root_stats(
+                states, evaluate_fn, generator, sims, graph=graph)[0]
     else:
         mcts = MCTS(env, mcts_cfg)
 

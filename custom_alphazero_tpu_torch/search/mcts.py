@@ -63,6 +63,33 @@ def rowsum(x: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def renormalize(probs: torch.Tensor, legal: torch.Tensor) -> torch.Tensor:
+    """Legal-masked renormalized priors, uniform over legal moves when the
+    mass is zero, with a 1e-35 floor so that ``prior > 0`` is exactly the
+    legal mask."""
+    masked = torch.where(legal, probs, 0.0)
+    total = rowsum(masked)
+    num_legal = legal.sum(dim=-1, keepdim=True).clamp_min(1)
+    renormed = torch.where(
+        total > 0.0,
+        masked / total.clamp_min(1e-30),
+        legal.float() / num_legal,
+    )
+    return torch.where(legal, renormed.clamp_min(1e-35), 0.0)
+
+
+def root_noisy_prior(root_prior: torch.Tensor, gamma: torch.Tensor,
+                     fraction: float) -> torch.Tensor:
+    """(1 - fraction) * P + fraction * Dir(alpha) over the legal root
+    actions, the Dirichlet sample built from (B, A) Gamma draws."""
+    legal = root_prior > 0
+    gamma = torch.where(legal, gamma, 0.0)
+    noise = gamma / rowsum(gamma).clamp_min(1e-30)
+    mixed = (1.0 - fraction) * root_prior + fraction * noise
+    # Keep the legal floor: noise can underflow to zero.
+    return torch.where(legal, mixed.clamp_min(1e-35), 0.0)
+
+
 @dataclass
 class Tree:
     """Search trees of capacity N nodes for a batch of B games.
@@ -198,21 +225,6 @@ class MCTS:
         """(...,) PUCT argmax, the first maximum (lowest action)."""
         return self._ucb_scores(prior, nv, w).argmax(-1)
 
-    def _renormalize(self, probs: torch.Tensor,
-                     legal: torch.Tensor) -> torch.Tensor:
-        """Legal-masked renormalized priors, uniform over legal moves when
-        the mass is zero, with a 1e-35 floor so that ``prior > 0`` is
-        exactly the legal mask."""
-        masked = torch.where(legal, probs, 0.0)
-        total = rowsum(masked)
-        num_legal = legal.sum(dim=-1, keepdim=True).clamp_min(1)
-        renormed = torch.where(
-            total > 0.0,
-            masked / total.clamp_min(1e-30),
-            legal.float() / num_legal,
-        )
-        return torch.where(legal, renormed.clamp_min(1e-35), 0.0)
-
     def noise_plan(self, generator: Optional[torch.Generator]):
         """The search's root-noise source: the generator, or None when
         noise is off."""
@@ -243,17 +255,12 @@ class MCTS:
 
     def _root_noisy_prior(self, root_prior: torch.Tensor,
                           gamma: Optional[torch.Tensor]) -> torch.Tensor:
-        """(1 - eps) * P + eps * Dir(alpha) over the legal root actions."""
-        cfg = self.cfg
-        if not cfg.use_dirichlet:
+        """The root prior mixed with this wave's noise (``root_noisy_prior``),
+        or as it is when noise is off."""
+        if not self.cfg.use_dirichlet:
             return root_prior
-        legal = root_prior > 0
-        gamma = torch.where(legal, gamma, 0.0)
-        noise = gamma / rowsum(gamma).clamp_min(1e-30)
-        mixed = ((1.0 - cfg.dirichlet_fraction) * root_prior
-                 + cfg.dirichlet_fraction * noise)
-        # Keep the legal floor: noise can underflow to zero.
-        return torch.where(legal, mixed.clamp_min(1e-35), 0.0)
+        return root_noisy_prior(root_prior, gamma,
+                                self.cfg.dirichlet_fraction)
 
     # -- select and backup ---------------------------------------------------
 
@@ -424,7 +431,7 @@ class MCTS:
             # wave 0).
             do = ~tree.expanded[batch, leaf] & ~leaf_terminal
             legal = env.legal_mask(leaf_state)
-            renormed = self._renormalize(probs, legal)
+            renormed = renormalize(probs, legal)
             if compressed:
                 # Slot 0: the lowest legal action (a node's first child),
                 # boosted above every prior and then given back its own;

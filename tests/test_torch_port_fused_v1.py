@@ -197,7 +197,6 @@ def test_wave_rejects_non_cuda_accelerators():
     states = env.init(2, device="meta")
     carry = fused_mcts.init_carry(env, states, 3)
     geom = fused_mcts.WaveGeometry(6, 7, 4, 1.5, 2)
-    x = torch.zeros((2, 7), device="meta")
+    buffers = fused_mcts_v2.new_buffers(2, 7, geom, False, "meta", (8, 8))
     with pytest.raises(ValueError, match="no wave kernel"):
-        fused_mcts.wave(0, x, x, torch.zeros((2, 1), device="meta"),
-                        torch.zeros((2, 8, 8), device="meta"), carry, geom)
+        fused_mcts.wave_step(buffers, carry, geom)
