@@ -12,12 +12,13 @@ Phases (any failed check raises and exits non-zero):
 2. Build: nvcc builds both wave kernels, K1 (csrc/fused_mcts_v2.cu) and K2
    (csrc/fused_mcts.cu), from the repo's sources into build/kernels/, in
    parallel.
-3. K1 vs its plain version: whole searches (B=1024, 250 simulations, root
-   noise on, a dyadic evaluator) from random positions at 7x6 n=4 and 5x4
-   n=3, through the CUDA step kernel and ``wave_step_reference`` side by
-   side; all 12 carry arrays, the leaf board, ``renormed``, ``mixed``,
-   ``root_prior``, the observation, the recorded path and the wave counter
-   must be bit-equal after every wave. Times of the kernel (CUDA events
+3. K1 vs its plain version: whole searches (250 simulations, root noise
+   on, a dyadic evaluator) from random positions at 7x6 n=4 and 5x4 n=3
+   with B=1024, and at 7x6 n=4 with the arena's B=256, through the CUDA
+   step kernel and ``wave_step_reference`` side by side; all 12 carry
+   arrays, the leaf board, ``renormed``, ``mixed``, ``root_prior``, the
+   observation, the recorded path and the wave counter must be bit-equal
+   after every wave. Times of the kernel (CUDA events
    over back-to-back launches), of the plain version, the kernel's bytes
    bound, and a fit of kernel time against the deepest game's depth.
 4. Net: the committed c4-r5 checkpoint through load_jax_checkpoint; the
@@ -27,9 +28,9 @@ Phases (any failed check raises and exits non-zero):
    the trained weights in bf16, every wave a replay of the search's CUDA
    graph (the step kernel + the net); every wave must go through the
    kernel and none through the plain version. Then the same generation
-   with every wave launched from the host (``graph=False``) and both once
-   more, in turns. Prints simulations/s of each, the kernel / net / rest
-   split, one profiled ply of each and the sample checks.
+   with every wave launched from the host (``graph=False``). Prints
+   simulations/s of each, the kernel / net / rest split, one profiled ply
+   of each and the sample checks.
 6. K2 vs its plain version, as phase 3.
 7. The searches agree: K2 (``FusedConnectNSearch``) and K1
    (``FusedConnectNSearchV2``), each launched from the host and replayed
@@ -43,25 +44,68 @@ Phases (any failed check raises and exits non-zero):
    path (its default, the graph) at the phase-5 configuration, 4 plies
    each from one generator seed: identical samples and stats. Prints
    sims/s of both.
+9. Codec and replay ring at full size (capacity 400,000, bit-packed
+   observations): phase 5's 43,008 observations packed on the card, bytes
+   equal to the CPU's; adds until the ring has wrapped, then a sample: ring
+   contents, ``head``, ``size`` and the decoded sample equal to a CPU ring
+   fed the same batches and indices. Prints the ring's device bytes and the
+   time of an add and of a sample.
+10. Train step at the c4-r5 width (batch 1024 from the ring, aux batch 256
+   from data/train_labels_r5.npz), started from
+   artifacts/c4-r5/final_training_state with its momentum: one float32 step
+   on the card against the same step on the CPU (TF32 off; the gradient
+   leaf by leaf, the CPU's step on the reversed batch beside it), then bf16
+   steps: one profiled (device busy time, top kernels), 20 timed by the
+   clock and by CUDA events, loss finite.
+11. Arena at c4-r5 (256 games, MCTS, 250 simulations) of the trained net
+   against itself: one ply's search with the mixed evaluator, graph
+   replays against host launches, bit-equal; then two arenas: the counts
+   add up, the log is consistent, two graph captures, then none. Prints
+   their seconds and K1's launches.
+12. The entry point: ``run(cfg, generations=2)`` on the c4-r5 config
+   (solver scoring and tree rendering off, arena and checkpoint every 20
+   steps) in a temporary directory seeded with the committed training
+   state: both generations train, both arenas run, the checkpoint restores
+   with a matching hash. Prints each generation's seconds by phase, K1's
+   launches and the graph captures (three: self-play's one, the arena's
+   two).
+13. The kernels' JSON line, the card's line, and the result line.
+
 ``python3 chip_smoke.py --launch-shapes`` runs a tuning aid in place of the
 phases: K1 built with 1, 2, 4 and 8 games (warps) per block, each checked
 and timed as in phase 3.
-
-9. The kernels' JSON line, the card's line, and the result line.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT = os.path.join(REPO, "artifacts", "c4-r5", "iteration_11600")
+TRAINING_STATE = os.path.join(REPO, "artifacts", "c4-r5",
+                              "final_training_state")
+C4R5_CONFIG = os.path.join(REPO, "artifacts", "c4-r5", "config.json")
+LABELS = os.path.join(REPO, "data", "train_labels_r5.npz")
+RING_CAPACITY = 400_000
+TRAIN_BATCH = 1024
+AUX_BATCH = 256
+ARENA_GAMES = 256
+# Phase 10, card vs CPU, per leaf: the L2 distance of the gradients over the
+# larger of the leaf's gradient norm and the floor. Seven batches read
+# 3.8e-3 to 1.1e-2 in the worst leaf (H100 80GB HBM3); the CPU's own step
+# on the same rows in reverse order reads up to 2.8e-3. Leaves with a
+# gradient have norms of 4e-4 and more; the one without holds 5e-8 of noise.
+GRAD_L2_LIMIT = 5e-2
+GRAD_NORM_FLOOR = 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak
 BATCH = 1024
 SIMS = 250
@@ -256,27 +300,31 @@ def kernel_vs_plain(env, cfg, states, sims, gen, timed: bool,
 
 
 def kernel_phase(kernel: str, gen, device):
-    """Phases 3 and 6: ``kernel_vs_plain`` at 7x6 n=4 (timed) and 5x4 n=3;
-    returns the 7x6 (max_abs_err over both, kernel_ms, plain_ms, bound_ms,
-    carry_bound_ms, fit)."""
+    """Phases 3 and 6: ``kernel_vs_plain`` at 7x6 n=4 (timed) and 5x4 n=3
+    at B=1024, and K1 also at 7x6 n=4 at the arena's B=256 (a quarter of
+    the grid, another static carry); returns the timed run's (max_abs_err
+    over all runs, kernel_ms, plain_ms, bound_ms, carry_bound_ms, fit)."""
     from custom_alphazero_tpu_torch.config import ConnectNConfig, MCTSConfig
     from custom_alphazero_tpu_torch.envs.connect_n import ConnectN
 
-    results = {}
-    for geometry, timed in ((dict(width=7, height=6, n=4), True),
-                            (dict(width=5, height=4, n=3), False)):
+    shapes = [(dict(width=7, height=6, n=4), BATCH, True),
+              (dict(width=5, height=4, n=3), BATCH, False)]
+    if kernel == "K1":  # the searched arena launches it at this batch
+        shapes.append((dict(width=7, height=6, n=4), ARENA_GAMES, False))
+    results = []
+    for geometry, batch, timed in shapes:
         env = ConnectN(ConnectNConfig(**geometry))
         cfg = MCTSConfig(simulations=SIMS, **NOISE)
-        states = random_positions(env, BATCH, 20, gen, device)
+        states = random_positions(env, batch, 20, gen, device)
         t0 = time.perf_counter()
-        results[geometry["width"]] = kernel_vs_plain(env, cfg, states, SIMS,
-                                                     gen, timed, kernel)
+        results.append(kernel_vs_plain(env, cfg, states, SIMS, gen, timed,
+                                       kernel))
         log(f"{kernel} vs plain {geometry}: bit-equal on all 19 arrays "
             f"(carry, leaf board, renormed, mixed, root prior, observation, "
-            f"path, wave counter) at every wave of a B={BATCH}, "
+            f"path, wave counter) at every wave of a B={batch}, "
             f"{SIMS}-simulation search ({time.perf_counter() - t0:.1f} s)")
-    max_err, kernel_ms, plain_ms, bound_ms, carry_bound_ms, fit = results[7]
-    max_err = max(max_err, results[5][0])
+    _, kernel_ms, plain_ms, bound_ms, carry_bound_ms, fit = results[0]
+    max_err = max(result[0] for result in results)
     log(f"{kernel} step at B={BATCH}, N={SIMS + 1}, 7x6: kernel "
         f"{kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, touched-bytes bound "
         f"{bound_ms:.5f} ms, carry-bytes bound {carry_bound_ms:.4f} ms")
@@ -414,31 +462,42 @@ def time_forward(evaluate, obs, repeats: int = 5):
     return start.elapsed_time(end) / repeats, host_ms
 
 
-def profile_ply(generate, evaluate, gen, label: str) -> None:
-    """One more ply of the main path under torch.profiler: device busy time
-    by kernel, the number of device kernels and of host launch calls per
-    wave, and the device's idle share of the ply's wall time."""
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaGraphLaunch", "cuLaunchKernel",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def profiled(fn):
+    """One call of ``fn`` under torch.profiler, the device drained after it:
+    (wall ms, device ms by kernel name, device events by kernel name, host
+    launch calls by name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    generate(evaluate, gen, BATCH)  # warm-up (and capture) outside the trace
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        generate(evaluate, gen, BATCH)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name, count_by_name, host_calls = {}, {}, {}
+    ms_by_name, count_by_name, host_calls = {}, {}, {}
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
             count_by_name[evt.name] = count_by_name.get(evt.name, 0) + 1
-            by_name[evt.name] = (by_name.get(evt.name, 0.0)
-                                 + evt.time_range.elapsed_us() / 1e3)
-        elif evt.name in ("cudaLaunchKernel", "cudaGraphLaunch",
-                          "cuLaunchKernel", "cudaMemcpyAsync",
-                          "cudaMemsetAsync"):
+            ms_by_name[evt.name] = (ms_by_name.get(evt.name, 0.0)
+                                    + evt.time_range.elapsed_us() / 1e3)
+        elif evt.name in HOST_LAUNCH_CALLS:
             host_calls[evt.name] = host_calls.get(evt.name, 0) + 1
+    return wall_ms, ms_by_name, count_by_name, host_calls
+
+
+def profile_ply(generate, evaluate, gen, label: str) -> None:
+    """One more ply of the main path under torch.profiler: device busy time
+    by kernel, the number of device kernels and of host launch calls per
+    wave, and the device's idle share of the ply's wall time."""
+    generate(evaluate, gen, BATCH)  # warm-up (and capture) outside the trace
+    wall_ms, by_name, count_by_name, host_calls = profiled(
+        lambda: generate(evaluate, gen, BATCH))
     busy = sum(by_name.values())
     if not by_name:
         log(f"profiled ply, {label}: device time not measured (no device "
@@ -461,6 +520,410 @@ def profile_ply(generate, evaluate, gen, label: str) -> None:
     log(f"  {len(count_by_name)} kernel and copy names; wave kernel "
         f"launches on the device: "
         f"{sum(n for name, n in count_by_name.items() if 'wave_kernel' in name)}")
+
+
+def timed(fn, repeats: int = 1):
+    """(result, wall ms per call) of ``fn``, the device drained around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3 / repeats
+
+
+def profile_step(fn, label: str, top: int = 10) -> float:
+    """One call of ``fn`` under torch.profiler: wall, device busy time, the
+    idle share and the device kernels that took the most time. Returns the
+    busy time in ms (nan where the profiler saw no device event)."""
+    wall_ms, by_name, count_by_name, _ = profiled(fn)
+    if not by_name:
+        log(f"profiled {label}: device time not measured (no device events)")
+        return math.nan
+    busy = sum(by_name.values())
+    log(f"profiled {label}: wall {wall_ms:.2f} ms (under the profiler), "
+        f"device busy {busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}, "
+        f"{sum(count_by_name.values())} device kernels and copies")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"  {ms:8.3f} ms  {count_by_name[name]:4d} x  {name[:100]}")
+    return busy
+
+
+def ring_phase(env, samples, gen, device):
+    """Phase 9; returns the filled device ring and its codec."""
+    from custom_alphazero_tpu_torch.replay.buffer import (
+        replay_add,
+        replay_gather,
+        replay_init,
+        replay_sample_indices,
+    )
+    from custom_alphazero_tpu_torch.replay.codec import codec_for_env
+
+    codec = codec_for_env(env)
+    codec.encode(samples.obs[:8])  # warm-up
+    packed, pack_ms = timed(lambda: codec.encode(samples.obs))
+    packed_cpu = codec.encode(samples.obs.cpu())
+    check(torch.equal(packed.words.cpu(), packed_cpu.words)
+          and torch.equal(packed.scalars.cpu(), packed_cpu.scalars),
+          "packed observations differ between the card and the CPU")
+    check(torch.equal(codec.decode(packed), samples.obs),
+          "decode(encode(obs)) differs from obs on the card")
+    rows = samples.obs.shape[0]
+    log(f"codec: {rows} observations packed to {packed.words.shape[1]} "
+        f"words ({4 * packed.words.shape[1]} B) each in {pack_ms:.2f} ms; "
+        f"bytes equal to the CPU's; decode exact")
+
+    rings = {d: replay_init(RING_CAPACITY, env.obs_shape, env.num_actions,
+                            codec, device=d) for d in (device, "cpu")}
+    cpu_samples = type(samples)(*(t.cpu() for t in samples))
+    valid = int(samples.valid.sum())
+    adds = RING_CAPACITY // valid + 2  # enough rows for the ring to wrap
+    add_ms = []
+    for i in range(adds):
+        for d, batch in ((device, samples), ("cpu", cpu_samples)):
+            # Each add differs from the last: the outcomes change sign.
+            batch = batch._replace(value=batch.value * (-1) ** i)
+            if d == "cpu":
+                rings[d] = replay_add(rings[d], batch, codec)
+            else:
+                rings[d], ms = timed(
+                    lambda: replay_add(rings[d], batch, codec))
+                add_ms.append(ms)
+    ring, ring_cpu = rings[device], rings["cpu"]
+    check(int(ring.size) == RING_CAPACITY
+          and int(ring.head) == (adds * valid) % RING_CAPACITY,
+          f"ring size {int(ring.size)} head {int(ring.head)}")
+    for name, x, y in (("words", ring.obs.words, ring_cpu.obs.words),
+                       ("scalars", ring.obs.scalars, ring_cpu.obs.scalars),
+                       ("policy", ring.policy, ring_cpu.policy),
+                       ("value", ring.value, ring_cpu.value),
+                       ("head", ring.head, ring_cpu.head),
+                       ("size", ring.size, ring_cpu.size)):
+        # The spare row takes the dropped writes in no fixed order.
+        x, y = (x[:RING_CAPACITY], y[:RING_CAPACITY]) if x.dim() else (x, y)
+        check(torch.equal(x.cpu(), y), f"ring {name} differs from the CPU's")
+    replay_sample_indices(ring, gen, TRAIN_BATCH)  # warm-up
+    indices, draw_ms = timed(
+        lambda: replay_sample_indices(ring, gen, TRAIN_BATCH))
+    check(len(set(indices.tolist())) == TRAIN_BATCH
+          and int(indices.max()) < RING_CAPACITY, "sample indices repeat")
+    batch, gather_ms = timed(lambda: replay_gather(ring, indices, codec))
+    batch_cpu = replay_gather(ring_cpu, indices.cpu(), codec)
+    for name, x, y in zip(("obs", "policy", "value"), batch, batch_cpu):
+        check(torch.equal(x.cpu(), y), f"sampled {name} differs from the "
+              f"CPU ring's")
+    ring_bytes = sum(t.numel() * t.element_size()
+                     for t in (*ring.obs, ring.policy, ring.value))
+    log(f"ring: capacity {RING_CAPACITY}, {ring_bytes} device bytes "
+        f"({ring_bytes / (RING_CAPACITY + 1):.0f} B per row); {adds} adds of "
+        f"{rows} rows ({valid} valid) wrapped it: contents, head, size and "
+        f"a decoded sample of {TRAIN_BATCH} equal to the CPU ring's; add "
+        f"{sum(add_ms[1:]) / len(add_ms[1:]):.2f} ms, draw {draw_ms:.2f} "
+        f"ms, gather + decode {gather_ms:.2f} ms")
+    return ring, codec
+
+
+def train_phase(ring, codec, gen, device):
+    """Phase 10."""
+    import numpy as np
+
+    from custom_alphazero_tpu_torch.config import ModelConfig
+    from custom_alphazero_tpu_torch.io.checkpoint import load_checkpoint
+    from custom_alphazero_tpu_torch.models.convert import (
+        train_state_from_jax,
+    )
+    from custom_alphazero_tpu_torch.replay.buffer import replay_sample
+    from custom_alphazero_tpu_torch.runtime.train import make_train_step
+
+    tree, meta = load_checkpoint(TRAINING_STATE)
+    with np.load(LABELS) as labels:
+        aux_cpu = tuple(torch.from_numpy(labels[k].astype(np.float32))
+                        for k in ("obs", "z"))
+    aux = {device: tuple(t.to(device) for t in aux_cpu), "cpu": aux_cpu}
+    widths = dict(depth=4, filters=128, value_hidden=256,
+                  lr_boundaries=(10000, 13000),
+                  lr_values=(0.0005, 0.00025, 0.0001))
+    fp32 = ModelConfig(**widths, compute_dtype="float32")
+    step = make_train_step(fp32, aux_value_weight=0.25,
+                           aux_value_batch=AUX_BATCH)
+    obs, pi, z = replay_sample(ring, gen, TRAIN_BATCH, codec)
+    aux_idx = torch.randint(0, aux[device][0].shape[0], (AUX_BATCH,),
+                            generator=gen, device=device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # The same step three times: on the card, on the CPU, and on the CPU
+    # with the batch's rows in reverse order. The last computes the same
+    # sums in another order: its distance from the CPU's step is what
+    # float32 rounding alone does to this gradient.
+    runs = (("card", device, False), ("cpu", "cpu", False),
+            ("cpu reversed", "cpu", True))
+    states, metrics = {}, {}
+    for label, d, reverse in runs:
+        states[label] = train_state_from_jax(tree, 7, fp32, device=d)
+        if label == "cpu":
+            trace_before = [t.clone() for t in states[label].trace]
+        rows = tuple(t.flip(0) if reverse else t for t in (obs, pi, z))
+        t0 = time.perf_counter()
+        _, metrics[label] = step(states[label], *(t.to(d) for t in rows),
+                                 None, *aux[d], None, aux_idx.to(d))
+        if label == "cpu":
+            log(f"  the CPU's float32 step took "
+                f"{time.perf_counter() - t0:.1f} s")
+    torch.backends.cudnn.allow_tf32 = True
+    gpu, cpu, reversed_ = (states[label] for label, _, _ in runs)
+    check(gpu.steps == meta["steps"] + 1 == cpu.steps, "step count")
+    terms = ("loss", "policy_loss", "value_loss", "l2", "solver_value_loss")
+    term_err = max(abs(float(getattr(metrics["card"], t))
+                       - float(getattr(metrics["cpu"], t))) for t in terms)
+
+    def max_err(xs, ys):
+        return max((x.cpu() - y).abs().max().item() for x, y in zip(xs, ys))
+
+    param_err = max_err(gpu.net.parameters(), cpu.net.parameters())
+    stat_err = max_err(gpu.net.buffers(), cpu.net.buffers())
+    m = metrics["card"]
+    log(f"train step, float32, from step {meta['steps']} (lr "
+        f"{m.learning_rate:.6g}): card vs CPU max-abs: loss terms "
+        f"{term_err:.3e} (loss {float(m.loss):.5f}, policy "
+        f"{float(m.policy_loss):.5f}, value {float(m.value_loss):.5f}, aux "
+        f"value {float(m.solver_value_loss):.5f}), parameters "
+        f"{param_err:.3e}, running statistics {stat_err:.3e}")
+    check(term_err < 1e-4, f"loss terms differ from the CPU's: {term_err}")
+    check(param_err < 1e-4, f"parameters differ from the CPU's: {param_err}")
+    check(stat_err < 1e-4, f"running statistics differ: {stat_err}")
+    # The gradient, leaf by leaf. The momentum after the step is gradient +
+    # momentum x the momentum before it, and the latter is the same bits in
+    # every run: the momenta differ by what the gradients differ. Each leaf
+    # is held by its L2 distance over its own L2 norm (the largest entry of
+    # the difference, also printed, is one ReLU input that rounds to the
+    # other side of zero and moves with the sample drawn). A leaf whose
+    # exact gradient is zero (the policy head's conv bias: BatchNorm follows
+    # it and the aux term has no policy part) holds rounding noise only,
+    # which the floor on the norm covers.
+    leaves = gradient_errors(cpu, trace_before, fp32.momentum,
+                             {"card": gpu, "cpu reversed": reversed_})
+
+    def l2_ratio(leaf, label):
+        return leaf[3][label][1] / max(leaf[2], GRAD_NORM_FLOOR)
+
+    for label in ("card", "cpu reversed"):
+        name, largest, norm, errs = max(
+            leaves, key=lambda leaf: l2_ratio(leaf, label))
+        by_entry = max(leaves, key=lambda leaf: leaf[3][label][0]
+                       / max(leaf[1], GRAD_NORM_FLOOR))
+        log(f"  gradient, {label} vs CPU, {len(leaves)} leaves: worst L2 "
+            f"distance over max(the leaf's norm, {GRAD_NORM_FLOOR:g}): "
+            f"{errs[label][1] / max(norm, GRAD_NORM_FLOOR):.3e} in {name} "
+            f"(distance {errs[label][1]:.3e}, norm {norm:.3e}); worst "
+            f"max-abs over the leaf's largest entry: "
+            f"{by_entry[3][label][0] / max(by_entry[1], GRAD_NORM_FLOOR):.3e}"
+            f" in {by_entry[0]} (max-abs {by_entry[3][label][0]:.3e}, "
+            f"largest entry {by_entry[1]:.3e})")
+    for leaf in leaves:
+        check(l2_ratio(leaf, "card") < GRAD_L2_LIMIT,
+              f"gradient of {leaf[0]} differs from the CPU's: L2 distance "
+              f"{leaf[3]['card'][1]:.3e}, norm {leaf[2]:.3e}")
+
+    bf16 = ModelConfig(**widths)
+    state = train_state_from_jax(tree, 7, bf16)
+    step = make_train_step(bf16, aux_value_weight=0.25,
+                           aux_value_batch=AUX_BATCH)
+
+    def one_step():
+        # As the loop runs it: the ring's sample, the step, the loss read.
+        _, m = step(state, *replay_sample(ring, gen, TRAIN_BATCH, codec), gen,
+                    *aux[device])
+        return float(m.loss)
+
+    one_step()  # warm-up (cuDNN picks its algorithms)
+    busy_ms = profile_step(one_step, "train step, bf16")
+    _, sample_ms = timed(
+        lambda: replay_sample(ring, gen, TRAIN_BATCH, codec), 20)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    loss, wall_ms = timed(one_step, 20)
+    end.record()
+    torch.cuda.synchronize()
+    check(math.isfinite(loss), "bf16 loss is not finite")
+    log(f"train step, bf16, batch {TRAIN_BATCH} + aux {AUX_BATCH}, 20 steps "
+        f"as the loop runs them (the ring's sample, the step, the loss "
+        f"read): wall {wall_ms:.3f} ms per step by the clock, "
+        f"{start.elapsed_time(end) / 20:.3f} ms by CUDA events around the "
+        f"same 20; device busy {busy_ms:.3f} ms (the profiled step); the "
+        f"ring's sample alone {sample_ms:.3f} ms; loss {loss:.5f} at step "
+        f"{state.steps}")
+
+
+def gradient_errors(reference, trace_before, momentum: float, others):
+    """Per leaf of ``reference`` (a train state one step after
+    ``trace_before``): (name, the gradient's largest entry, its L2 norm,
+    {label: (max-abs, L2) distance of that state's momentum from the
+    reference's}) for the states of ``others``, which took the same step
+    from the same momentum."""
+    leaves = []
+    names = [name for name, _ in reference.net.named_parameters()]
+    for i, (name, before) in enumerate(zip(names, trace_before)):
+        grad = reference.trace[i] - momentum * before
+        errs = {}
+        for label, state in others.items():
+            diff = state.trace[i].cpu() - reference.trace[i]
+            errs[label] = (diff.abs().max().item(), diff.norm().item())
+        leaves.append((name, grad.abs().max().item(), grad.norm().item(),
+                       errs))
+    return leaves
+
+
+def arena_phase(env, mcts_cfg, net, gen, device):
+    """Phase 11; returns K1's launches in one arena."""
+    from custom_alphazero_tpu_torch.config import ArenaConfig
+    from custom_alphazero_tpu_torch.ops import fused_mcts_v2
+    from custom_alphazero_tpu_torch.runtime.arena import (
+        _mixed_evaluators,
+        make_arena_fn,
+    )
+    from custom_alphazero_tpu_torch.runtime.evaluate import make_evaluate_fn
+
+    search_cls = fused_mcts_v2.FusedConnectNSearchV2
+    arena = make_arena_fn(env, ArenaConfig(games=ARENA_GAMES,
+                                           evaluate_with_mcts=True),
+                          mcts_cfg, MAX_PLIES)
+    candidate, incumbent = make_evaluate_fn(net), make_evaluate_fn(net)
+
+    # One ply's search as the arena runs it (B=256, the odd plies' mixed
+    # evaluator: each net forwards its half), replayed from its graph and
+    # launched from the host, one noise seed: the same root statistics.
+    starters = (torch.arange(ARENA_GAMES, device=device)
+                >= ARENA_GAMES // 2).to(torch.int32)
+    odd_ply = _mixed_evaluators(candidate, incumbent, starters)[1]
+    search = search_cls(env, mcts_cfg, device)
+    states = random_positions(env, ARENA_GAMES, 20, gen, device)
+    torch.backends.cudnn.deterministic = True  # one algorithm per conv
+    stats = []
+    for graph in (True, False):
+        seeded = torch.Generator(device=device).manual_seed(11)
+        stats.append(search.search_root_stats(states, odd_ply, seeded, SIMS,
+                                              graph=graph))
+    torch.backends.cudnn.deterministic = False
+    check(same_bits(stats[0][0], stats[1][0])
+          and same_bits(stats[0][1], stats[1][1]),
+          "arena ply: graph-replayed and host-launched searches differ")
+    log(f"arena ply search (B={ARENA_GAMES}, mixed evaluator, {SIMS} "
+        f"simulations): root visits and value sums bit-equal between the "
+        f"graph's replays and host launches")
+
+    seconds = []
+    for _ in range(2):  # the second arena replays the first one's graphs
+        captures = search_cls.captures
+        fused_mcts_v2.wave_step.launches = 0
+        fused_mcts_v2.wave_step_reference.calls = 0
+        result, ms = timed(
+            lambda: arena(candidate, incumbent, gen, ARENA_GAMES))
+        seconds.append(ms / 1e3)
+        captures = search_cls.captures - captures
+        launches = fused_mcts_v2.wave_step.launches
+        expected = MAX_PLIES * (SIMS + 1) + (
+            captures * fused_mcts_v2.WARMUP_WAVES)
+        check(launches == expected, f"arena: kernel launched {launches} "
+              f"times, expected {expected}")
+        check(fused_mcts_v2.wave_step_reference.calls == 0,
+              "arena: the plain version ran")
+        check(captures == (2 if len(seconds) == 1 else 0),
+              f"arena {len(seconds)}: {captures} graph captures")
+        wins, losses, draws = (int(result.wins), int(result.losses),
+                               int(result.draws))
+        check(wins + losses + draws == ARENA_GAMES, "arena counts")
+        log_ = result.log
+        half = ARENA_GAMES // 2
+        check(bool((log_.movers[0, :half] == 0).all())
+              and bool((log_.movers[0, half:] == 1).all())
+              and bool((log_.movers[1:] == 1 - log_.movers[:-1]).all()),
+              "arena movers")
+        check(bool((log_.active[1:] <= log_.active[:-1]).all()),
+              "arena active masks are not prefixes")
+        check(bool(((log_.actions >= 0) & (log_.actions < 7)).all()),
+              "arena actions out of range")
+        decisive = max(wins + losses, 1)
+        check(abs(float(result.score) - (wins / decisive if wins + losses
+                                         else 0.5)) < 1e-6, "arena score")
+        log(f"arena {len(seconds)}: {ARENA_GAMES} games x {MAX_PLIES} plies "
+            f"x {SIMS} sims in {seconds[-1]:.2f} s: +{wins}/-{losses}/="
+            f"{draws}, score {float(result.score):.3f}, promote "
+            f"{bool(result.promote)}; {launches} kernel launches, "
+            f"{captures} graph captures")
+    return launches
+
+
+def learner_phase(device):
+    """Phase 12; returns K1's launches over the run."""
+    from custom_alphazero_tpu_torch.config import apply_overrides, from_json
+    from custom_alphazero_tpu_torch.io.checkpoint import load_checkpoint
+    from custom_alphazero_tpu_torch.ops import fused_mcts_v2
+    from custom_alphazero_tpu_torch import paths
+    from custom_alphazero_tpu_torch.runtime.loop import run
+
+    with open(C4R5_CONFIG) as fp:
+        cfg = from_json(fp.read())
+    results = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        cfg = apply_overrides(cfg, {
+            "arena.evaluate_with_solver": "false",
+            "loop.visualize_frequency": "0",
+            "arena.evaluation_frequency": "20",
+            "arena.checkpoint_frequency": "20",
+            "loop.solver_labels_path": LABELS,
+            "run.results_dir": results,
+            "run.run_id": "smoke",
+        })
+        training_dir = paths.training_path(results, cfg.game, "smoke")
+        shutil.copytree(TRAINING_STATE, training_dir)
+        _, meta0 = load_checkpoint(training_dir)
+        captures = fused_mcts_v2.FusedConnectNSearchV2.captures
+        fused_mcts_v2.wave_step.launches = 0
+        fused_mcts_v2.wave_step_reference.calls = 0
+        t0 = time.perf_counter()
+        summary = run(cfg, generations=2)
+        wall = time.perf_counter() - t0
+        launches = fused_mcts_v2.wave_step.launches
+        captures = fused_mcts_v2.FusedConnectNSearchV2.captures - captures
+        check(fused_mcts_v2.wave_step_reference.calls == 0,
+              "learner: the plain version ran")
+        tree, meta = load_checkpoint(training_dir)  # checks the hash
+        evaluations = sorted(os.listdir(
+            paths.evaluation_path(results, cfg.game, "smoke")))
+    finally:
+        shutil.rmtree(results, ignore_errors=True)
+    steps = cfg.loop.train_iterations_per_generation
+    check(summary["iterations"] == meta0["steps"] + 2 * steps
+          == meta["steps"] == int(tree["steps"]),
+          f"learner: {summary['iterations']} iterations, checkpoint at "
+          f"{meta['steps']}, started from {meta0['steps']}")
+    check(summary["last_arena_score"] is not None, "learner: no arena ran")
+    check(evaluations == [f"iteration_{meta0['steps'] + steps}",
+                          f"iteration_{meta0['steps'] + 2 * steps}"],
+          f"learner: evaluation checkpoints {evaluations}")
+    for timing in summary["timings"]:
+        check(timing["train_iterations"] == steps,
+              f"generation {timing['generation']} trained "
+              f"{timing['train_iterations']} steps")
+        log(f"learner generation {timing['generation']}: "
+            f"{timing['samples']} samples, "
+            f"{timing['sims_per_second']:.0f} sims/s; seconds: generate "
+            f"{timing['generate_s']:.2f}, replay {timing['replay_s']:.3f}, "
+            f"train {timing['train_s']:.3f} ({steps} steps), arena "
+            f"{timing['arena_s']:.2f}, checkpoint "
+            f"{timing['checkpoint_s']:.3f}")
+    # Self-play's graph over the best net once, the arena's two once.
+    check(captures == 3, f"learner: {captures} graph captures, expected 3")
+    expected = (4 * MAX_PLIES * (SIMS + 1)
+                + captures * fused_mcts_v2.WARMUP_WAVES)
+    check(launches == expected, f"learner: kernel launched {launches} "
+          f"times, expected {expected}")
+    log(f"learner: 2 generations and 2 arenas in {wall:.1f} s, "
+        f"{summary['promotions']} promotions, steps {meta0['steps']} -> "
+        f"{meta['steps']}, checkpoint restored with a matching hash; "
+        f"{launches} kernel launches; {captures} graph captures (self-play "
+        f"1, arena 2)")
+    return launches
 
 
 def launch_shapes(device) -> None:
@@ -571,16 +1034,14 @@ def main() -> int:
     sp_cfg = SelfPlayConfig(games_per_generation=BATCH, continuous=True,
                             exclude_draws=False)
     # The default path replays the search's CUDA graph; graph=False launches
-    # every wave from the host. Host speed varies between calls, so the two
-    # are timed here in turns; the first run is the main path's.
+    # every wave from the host; the first run is the main path's.
     generators = {
         "graph": make_selfplay_fn(env, mcts_cfg, sp_cfg, MAX_PLIES),
         "host launches": make_selfplay_fn(env, mcts_cfg, sp_cfg, MAX_PLIES,
                                           graph=False),
     }
     forwards = MAX_PLIES * SIMS
-    for turn, label in enumerate(("graph", "host launches", "host launches",
-                                  "graph")):
+    for turn, label in enumerate(("graph", "host launches")):
         fused_mcts_v2.wave_step.launches = 0
         fused_mcts_v2.wave_step_reference.calls = 0
         torch.cuda.synchronize()
@@ -653,7 +1114,20 @@ def main() -> int:
     general_selfplay(env, mcts_cfg, sp_cfg, eval_bf16, device)
     torch.backends.cudnn.deterministic = False
 
-    # ---- 9. result lines ----------------------------------------------------
+    # ---- 9. codec and replay ring -------------------------------------------
+    ring, codec = ring_phase(env, samples, gen, device)
+
+    # ---- 10. train step -----------------------------------------------------
+    train_phase(ring, codec, gen, device)
+    del ring
+
+    # ---- 11. arena ----------------------------------------------------------
+    arena_launches = arena_phase(env, mcts_cfg, net_bf16, gen, device)
+
+    # ---- 12. the entry point ------------------------------------------------
+    learner_launches = learner_phase(device)
+
+    # ---- 13. result lines ---------------------------------------------------
     k2_err, k2_ms, k2_plain_ms, k2_bound_ms, k2_carry_bound_ms, k2_fit = k2
     check(k2_launches > 0 and k2_err == 0.0, "K2 did not run or disagreed")
     kernels = [{
@@ -662,6 +1136,8 @@ def main() -> int:
         "source": "custom_alphazero_tpu_torch/csrc/fused_mcts_v2.cu",
         "replaces": "custom_alphazero_tpu/ops/fused_mcts_v2.py:68",
         "launches": launches,
+        "launches_arena": arena_launches,
+        "launches_learner": learner_launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -1,16 +1,18 @@
-"""Configuration dataclasses of the self-play slice.
+"""Configuration tree.
 
-Own copies of the JAX package's ``ConnectNConfig``, ``MCTSConfig``,
-``ModelConfig`` and ``SelfPlayConfig``, with the same fields and defaults, so
-a configuration snapshot (e.g. ``artifacts/c4-r5/config.json``) reads into
-either package. Field comments live with the JAX originals
-(custom_alphazero_tpu/config.py).
+Own copies of the JAX package's config dataclasses, with the same fields and
+defaults, the same dotted-key overrides and the same JSON snapshot, so a
+configuration file (e.g. ``artifacts/c4-r5/config.json``) reads into either
+package and writes back identically. Field comments live with the JAX
+originals (custom_alphazero_tpu/config.py).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Tuple
+import dataclasses
+import json
+from dataclasses import dataclass, field
+from typing import Any, Tuple
 
 import torch
 
@@ -32,6 +34,11 @@ class ConnectNConfig:
         # One action per column with gravity; otherwise one per cell,
         # ordered column-major (action = x * height + y).
         return self.width if self.gravity else self.width * self.height
+
+
+@dataclass(frozen=True)
+class ChessConfig:
+    history_length: int = 8
 
 
 @dataclass(frozen=True)
@@ -77,6 +84,183 @@ class SelfPlayConfig:
     exclude_draws: bool = True
     continuous: bool = False
     max_plies: int = 0
+
+
+@dataclass(frozen=True)
+class ReplayConfig:
+    capacity: int = 10_000
+    min_size: int = 2_500
+    compress_obs: bool = True
+    policy_topk: int = 0
+
+
+@dataclass(frozen=True)
+class ArenaConfig:
+    games: int = 150
+    promote_threshold: float = 0.55
+    evaluation_frequency: int = 50
+    checkpoint_frequency: int = 50
+    evaluate_with_mcts: bool = False
+    evaluate_with_solver: bool = False
+    deterministic: bool = False
+    min_decisives: int = 0
+    promote_when_inconclusive: bool = False
+    solver_score_veto: bool = False
+    solver_score_veto_margin: float = 0.02
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallelism: int = 0
+    model_parallelism: int = 1
+
+
+@dataclass(frozen=True)
+class LoopConfig:
+    generations: int = 0  # 0 = run forever
+    train_iterations_per_generation: int = 8
+    checkpoint_replay: bool = True
+    samples_checkpoint_frequency: int = 1
+    visualize_frequency: int = 0
+    solver_labels_path: str = ""
+    solver_value_weight: float = 0.25
+    solver_policy_weight: float = 0.0
+    max_sample_reuse: float = 0.0
+    solver_value_batch: int = 256
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    results_dir: str = "results"
+    run_id: str = ""  # empty = timestamp at startup
+    seed: int = 0
+    watchdog_minutes: float = 0.0
+    compile_grace_minutes: float = 30.0
+
+
+@dataclass(frozen=True)
+class Config:
+    game: str = "connect_n"  # "connect_n" | "chess"
+    connect_n: ConnectNConfig = field(default_factory=ConnectNConfig)
+    chess: ChessConfig = field(default_factory=ChessConfig)
+    mcts: MCTSConfig = field(default_factory=MCTSConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    self_play: SelfPlayConfig = field(default_factory=SelfPlayConfig)
+    replay: ReplayConfig = field(default_factory=ReplayConfig)
+    arena: ArenaConfig = field(default_factory=ArenaConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    loop: LoopConfig = field(default_factory=LoopConfig)
+    run: RunConfig = field(default_factory=RunConfig)
+
+
+# ---------------------------------------------------------------------------
+# Overrides & serialization
+# ---------------------------------------------------------------------------
+
+def _coerce(value: str, target: Any) -> Any:
+    """Coerce a CLI string to the type of the field it replaces."""
+    if isinstance(target, bool):
+        return value.lower() in ("1", "true", "yes", "on")
+    if isinstance(target, int):
+        return int(value)
+    if isinstance(target, float):
+        return float(value)
+    if isinstance(target, tuple):
+        parts = [p for p in value.strip("()[] ").split(",") if p]
+        elem = target[0] if target else 0
+        return tuple(_coerce(p.strip(), elem) for p in parts)
+    return value
+
+
+def validate(config: Config) -> Config:
+    """Reject foot-gun configs at parse time (returns the config)."""
+    m = config.model
+    if len(m.lr_values) != len(m.lr_boundaries) + 1:
+        raise ValueError(
+            f"model.lr_values needs exactly len(lr_boundaries)+1 entries: "
+            f"got {len(m.lr_values)} values for {len(m.lr_boundaries)} "
+            "boundaries"
+        )
+    if any(b2 <= b1 for b1, b2 in zip(m.lr_boundaries, m.lr_boundaries[1:])):
+        raise ValueError(
+            f"model.lr_boundaries must be strictly increasing: {m.lr_boundaries}"
+        )
+    if config.arena.solver_score_veto and not (
+        config.arena.evaluate_with_solver and config.game == "connect_n"
+    ):
+        raise ValueError(
+            "arena.solver_score_veto needs arena.evaluate_with_solver=true "
+            "on connect_n (the oracle scores arena moves there)"
+        )
+    s = config.mcts
+    if s.max_nodes and s.max_nodes < s.simulations:
+        raise ValueError(
+            f"mcts.max_nodes={s.max_nodes} < mcts.simulations="
+            f"{s.simulations}: the tree needs one slot per simulation "
+            "(set max_nodes=0 for auto)"
+        )
+    if s.topk_actions < -1:
+        raise ValueError(
+            f"mcts.topk_actions={s.topk_actions}: use 0 (auto), -1 (full "
+            "width) or an explicit positive top-K prior width"
+        )
+    if s.simulations < 1:
+        raise ValueError(f"mcts.simulations={s.simulations} must be >= 1")
+    return config
+
+
+def apply_overrides(config: Config, overrides: dict) -> Config:
+    """Apply {"mcts.simulations": "64", ...} dotted-key overrides."""
+    for dotted, raw in overrides.items():
+        keys = dotted.split(".")
+        # Walk down to the leaf dataclass, then rebuild the spine.
+        objs = [config]
+        for key in keys[:-1]:
+            objs.append(getattr(objs[-1], key))
+        current = getattr(objs[-1], keys[-1])
+        value = _coerce(raw, current) if isinstance(raw, str) else raw
+        updated = dataclasses.replace(objs[-1], **{keys[-1]: value})
+        for obj, key in zip(reversed(objs[:-1]), reversed(keys[:-1])):
+            updated = dataclasses.replace(obj, **{key: updated})
+        config = updated
+    return validate(config)
+
+
+def parse_cli_overrides(argv: list) -> dict:
+    """Parse ["--mcts.simulations=64", ...] style args."""
+    overrides = {}
+    for arg in argv:
+        if not arg.startswith("--") or "=" not in arg:
+            raise ValueError(f"Expected --dotted.key=value, got {arg!r}")
+        key, _, value = arg[2:].partition("=")
+        overrides[key] = value
+    return overrides
+
+
+def to_json(config: Config) -> str:
+    return json.dumps(dataclasses.asdict(config), indent=2, sort_keys=True)
+
+
+def from_json(text: str) -> Config:
+    """A Config from a JSON snapshot; absent fields keep their defaults."""
+    data = json.loads(text)
+    kwargs: dict = {}
+    for f in dataclasses.fields(Config):
+        if f.name not in data:
+            continue
+        value = data[f.name]
+        if isinstance(value, dict):
+            sub = type(getattr(Config(), f.name))
+            value = sub(**{
+                sf.name: (tuple(value[sf.name])
+                          if isinstance(value[sf.name], list)
+                          else value[sf.name])
+                for sf in dataclasses.fields(sub) if sf.name in value
+            })
+        kwargs[f.name] = value
+    return Config(**kwargs)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,21 +1,26 @@
-"""Flax variables -> the port's PolicyValueNet.
+"""Flax variables and train state <-> the port's PolicyValueNet and TrainState.
 
-Takes the Flax ``params`` / ``batch_stats`` trees as nested dicts of numpy
-arrays (what ``jax.device_get`` of a train state gives, or what
-io/checkpoint.py reads from disk without JAX) and fills the net:
+The Flax side is nested dicts of numpy arrays (what ``jax.device_get`` of a
+train state gives after ``flax.serialization.to_state_dict``, or what
+io/checkpoint.py reads from disk without JAX):
 
-- Flax Conv kernel (kh, kw, cin, cout) -> torch (cout, cin, kh, kw).
-- Flax Dense kernel (in, out) -> torch Linear weight (out, in).
-- BatchNorm scale/bias -> weight/bias, batch_stats mean/var -> running
+- Flax Conv kernel (kh, kw, cin, cout) <-> torch (cout, cin, kh, kw).
+- Flax Dense kernel (in, out) <-> torch Linear weight (out, in).
+- BatchNorm scale/bias <-> weight/bias, batch_stats mean/var <-> running
   mean/var.
 - Flax module names: the stem is ConvBlock_0, the policy head conv
   ConvBlock_1, the value head conv ConvBlock_2; Dense_0 is the policy
   dense, Dense_1 / Dense_2 the value MLP.
+- The optimizer state of ``optax.sgd(schedule, momentum)`` is the tuple
+  ``(TraceState(trace), ScaleByScheduleState(count))``, serialised as
+  ``{"0": {"trace": <params-shaped tree>}, "1": {"count": int32}}``; with
+  ``grad_clip_norm > 0`` the chain wraps it as ``{"0": {}, "1": <that>}``.
+  The trace is the port's momentum, in the layouts above.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Dict, Iterator, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +30,12 @@ from custom_alphazero_tpu_torch.models.policy_value import (
     ConvBlock,
     PolicyValueNet,
 )
+from custom_alphazero_tpu_torch.runtime.train import TrainState
+
+# How a torch tensor maps to its Flax array: the permutation that takes the
+# Flax layout to torch's (and its inverse back).
+_TO_TORCH = {"conv": (3, 2, 0, 1), "dense": (1, 0), "vec": (0,)}
+_TO_FLAX = {"conv": (2, 3, 1, 0), "dense": (1, 0), "vec": (0,)}
 
 
 def _tensor(x) -> torch.Tensor:
@@ -32,23 +43,68 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
-def _load_conv_block(block: ConvBlock, params: Mapping[str, Any],
-                     stats: Mapping[str, Any]) -> None:
-    conv, bn_p, bn_s = (params["Conv_0"], params["BatchNorm_0"],
-                        stats["BatchNorm_0"])
-    with torch.no_grad():
-        block.conv.weight.copy_(_tensor(conv["kernel"]).permute(3, 2, 0, 1))
-        block.conv.bias.copy_(_tensor(conv["bias"]))
-        block.bn.weight.copy_(_tensor(bn_p["scale"]))
-        block.bn.bias.copy_(_tensor(bn_p["bias"]))
-        block.bn.running_mean.copy_(_tensor(bn_s["mean"]))
-        block.bn.running_var.copy_(_tensor(bn_s["var"]))
+def _conv_block(block: ConvBlock, path: Tuple[str, ...]):
+    yield path + ("Conv_0", "kernel"), block.conv.weight, "conv"
+    yield path + ("Conv_0", "bias"), block.conv.bias, "vec"
+    yield path + ("BatchNorm_0", "scale"), block.bn.weight, "vec"
+    yield path + ("BatchNorm_0", "bias"), block.bn.bias, "vec"
 
 
-def _load_dense(linear: torch.nn.Linear, params: Mapping[str, Any]) -> None:
+def _conv_blocks(net: PolicyValueNet) -> Iterator[Tuple[ConvBlock, tuple]]:
+    yield net.stem, ("ConvBlock_0",)
+    for i, block in enumerate(net.blocks):
+        yield block.conv1, (f"ResidualBlock_{i}", "ConvBlock_0")
+        yield block.conv2, (f"ResidualBlock_{i}", "ConvBlock_1")
+        yield block.proj, (f"ResidualBlock_{i}", "ConvBlock_2")
+    yield net.policy_conv, ("ConvBlock_1",)
+    yield net.value_conv, ("ConvBlock_2",)
+
+
+def _param_layout(net: PolicyValueNet):
+    """(Flax path, torch parameter, kind) of every parameter."""
+    for block, path in _conv_blocks(net):
+        yield from _conv_block(block, path)
+    for name, linear in (("Dense_0", net.policy_dense),
+                         ("Dense_1", net.value_dense1),
+                         ("Dense_2", net.value_dense2)):
+        yield (name, "kernel"), linear.weight, "dense"
+        yield (name, "bias"), linear.bias, "vec"
+
+
+def _stats_layout(net: PolicyValueNet):
+    """(Flax path, torch buffer, kind) of every running statistic."""
+    for block, path in _conv_blocks(net):
+        yield path + ("BatchNorm_0", "mean"), block.bn.running_mean, "vec"
+        yield path + ("BatchNorm_0", "var"), block.bn.running_var, "vec"
+
+
+def _get(tree: Mapping[str, Any], path: Tuple[str, ...]):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _put(tree: Dict[str, Any], path: Tuple[str, ...], value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _to_flax(tensor: torch.Tensor, kind: str) -> np.ndarray:
+    """A host copy in Flax's layout (a copy on the CPU too: a checkpoint
+    may be written while training goes on)."""
+    return tensor.detach().float().permute(_TO_FLAX[kind]).contiguous().to(
+        "cpu", copy=True).numpy()
+
+
+def load_jax_variables(net: PolicyValueNet, params: Mapping[str, Any],
+                       batch_stats: Mapping[str, Any]) -> None:
+    """Fill ``net``'s parameters and running statistics, in place."""
     with torch.no_grad():
-        linear.weight.copy_(_tensor(params["kernel"]).T)
-        linear.bias.copy_(_tensor(params["bias"]))
+        for layout, tree in ((_param_layout(net), params),
+                             (_stats_layout(net), batch_stats)):
+            for path, tensor, kind in layout:
+                tensor.copy_(_tensor(_get(tree, path)).permute(_TO_TORCH[kind]))
 
 
 def from_jax_variables(params: Mapping[str, Any],
@@ -61,16 +117,73 @@ def from_jax_variables(params: Mapping[str, Any],
     """Build an eval-mode PolicyValueNet on ``device`` from Flax variables."""
     device = resolve_device(device)
     net = PolicyValueNet(num_actions, cfg, in_channels, board_hw)
-    p, s = params, batch_stats
-    _load_conv_block(net.stem, p["ConvBlock_0"], s["ConvBlock_0"])
-    for i, block in enumerate(net.blocks):
-        bp, bs = p[f"ResidualBlock_{i}"], s[f"ResidualBlock_{i}"]
-        _load_conv_block(block.conv1, bp["ConvBlock_0"], bs["ConvBlock_0"])
-        _load_conv_block(block.conv2, bp["ConvBlock_1"], bs["ConvBlock_1"])
-        _load_conv_block(block.proj, bp["ConvBlock_2"], bs["ConvBlock_2"])
-    _load_conv_block(net.policy_conv, p["ConvBlock_1"], s["ConvBlock_1"])
-    _load_conv_block(net.value_conv, p["ConvBlock_2"], s["ConvBlock_2"])
-    _load_dense(net.policy_dense, p["Dense_0"])
-    _load_dense(net.value_dense1, p["Dense_1"])
-    _load_dense(net.value_dense2, p["Dense_2"])
+    load_jax_variables(net, params, batch_stats)
     return net.to(device).eval()
+
+
+def to_jax_variables(net: PolicyValueNet) -> Tuple[dict, dict]:
+    """(params, batch_stats) of ``net`` as nested dicts of numpy arrays in
+    Flax's names and layouts: the inverse of ``from_jax_variables``."""
+    params: dict = {}
+    batch_stats: dict = {}
+    for layout, tree in ((_param_layout(net), params),
+                         (_stats_layout(net), batch_stats)):
+        for path, tensor, kind in layout:
+            _put(tree, path, _to_flax(tensor, kind))
+    return params, batch_stats
+
+
+def _sgd_state(opt_state: Mapping[str, Any]) -> Mapping[str, Any]:
+    """The ``(TraceState, ScaleByScheduleState)`` pair of an optimizer
+    state, with or without the clip's wrapper."""
+    return opt_state if "trace" in opt_state["0"] else opt_state["1"]
+
+
+def trace_from_jax(opt_state: Mapping[str, Any],
+                   net: PolicyValueNet) -> List[torch.Tensor]:
+    """The momentum buffers of a Flax optimizer state, one per entry of
+    ``net.parameters()`` and on its device."""
+    trace = _sgd_state(opt_state)["0"]["trace"]
+    by_param = {
+        id(tensor): _tensor(_get(trace, path)).permute(
+            _TO_TORCH[kind]).contiguous().to(tensor.device)
+        for path, tensor, kind in _param_layout(net)
+    }
+    return [by_param[id(p)] for p in net.parameters()]
+
+
+def opt_state_to_jax(net: PolicyValueNet, trace: List[torch.Tensor],
+                     steps: int, grad_clip: bool) -> dict:
+    """The Flax optimizer state of ``make_optimizer`` holding ``trace`` at
+    count ``steps``; ``grad_clip`` adds the clip's (empty) wrapper."""
+    by_param = {id(p): t for p, t in zip(net.parameters(), trace)}
+    tree: dict = {}
+    for path, tensor, kind in _param_layout(net):
+        _put(tree, path, _to_flax(by_param[id(tensor)], kind))
+    sgd = {"0": {"trace": tree}, "1": {"count": np.array(steps, np.int32)}}
+    return {"0": {}, "1": sgd} if grad_clip else sgd
+
+
+def train_state_to_jax(state: TrainState, cfg: ModelConfig) -> dict:
+    """A port TrainState as the state dict of the JAX package's TrainState
+    (params, batch_stats, opt_state, steps)."""
+    params, batch_stats = to_jax_variables(state.net)
+    return {
+        "params": params,
+        "batch_stats": batch_stats,
+        "opt_state": opt_state_to_jax(state.net, state.trace, state.steps,
+                                      cfg.grad_clip_norm > 0),
+        "steps": np.array(state.steps, np.int32),
+    }
+
+
+def train_state_from_jax(tree: Mapping[str, Any], num_actions: int,
+                         cfg: ModelConfig = ModelConfig(),
+                         in_channels: int = 4, board_hw: tuple = (6, 7),
+                         device=None) -> TrainState:
+    """A port TrainState (net, momentum, steps) on ``device`` from the state
+    dict of a JAX TrainState."""
+    net = from_jax_variables(tree["params"], tree["batch_stats"], num_actions,
+                             cfg, in_channels, board_hw, device)
+    return TrainState(net=net, trace=trace_from_jax(tree["opt_state"], net),
+                      steps=int(tree["steps"]))

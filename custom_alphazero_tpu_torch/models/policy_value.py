@@ -7,8 +7,9 @@ flatten -> dense to logits) and a value head (1x1 conv, 1 filter -> flatten
 -> dense(value_hidden) -> relu -> dense(1) -> tanh).
 
 Input is NHWC like the JAX net, and both heads flatten in NHWC order so the
-Flax dense kernels carry over unchanged (models/convert.py). BatchNorm uses
-Flax's ``epsilon=1e-3``.
+Flax dense kernels carry over unchanged (models/convert.py). ``BatchNorm``
+is Flax's: ``epsilon=1e-3``, running statistics that move by 0.01 per train
+step, and a running variance fed by the biased batch variance.
 
 ``cfg.compute_dtype == "bfloat16"`` runs the trunk, the head convs and the
 value hidden layer under bf16 autocast, and the two final dense layers in
@@ -25,13 +26,52 @@ import torch.nn as nn
 from custom_alphazero_tpu_torch.config import ModelConfig
 
 
+class BatchNorm(nn.Module):
+    """Flax's ``nn.BatchNorm(momentum=0.99, epsilon=1e-3)`` over NCHW.
+
+    ``nn.BatchNorm2d`` feeds its running variance the unbiased batch
+    variance; Flax feeds it the biased one, so the two drift apart by
+    n / (n - 1) per step. In training mode this module normalises with the
+    batch statistics and updates both running statistics itself, from the
+    mean and inverse deviation the normalisation computed. It has no
+    ``num_batches_tracked``."""
+
+    momentum = 0.01  # 1 - Flax's 0.99
+    eps = 1e-3
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x):
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+            if torch.is_grad_enabled():
+                # Autograd keeps the statistics for the backward pass, and
+                # a train-mode forward before it updates the buffers in
+                # place (the train step's auxiliary forward): keep copies.
+                mean, var = mean.clone(), var.clone()
+            return torch.nn.functional.batch_norm(
+                x, mean, var, self.weight, self.bias, False, 0.0, self.eps)
+        out, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            var = invstd.float().square().reciprocal() - self.eps  # biased
+            self.running_mean.lerp_(mean.float(), self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return out
+
+
 class ConvBlock(nn.Module):
     """conv -> BN -> optional relu."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, padding=kernel // 2)
-        self.bn = nn.BatchNorm2d(cout, eps=1e-3)
+        self.bn = BatchNorm(cout)
 
     def forward(self, x, activate: bool = True):
         x = self.bn(self.conv(x))

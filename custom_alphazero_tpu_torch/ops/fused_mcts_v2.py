@@ -554,6 +554,10 @@ class FusedConnectNSearchV2:
     The search owns its device memory per (batch, simulations), refills it
     in place at the start of a search, and returns copies."""
 
+    # CUDA graph captures made by all searches of the process: one per
+    # (search, batch, simulations, evaluator object).
+    captures = 0
+
     def __init__(self, env: ConnectN, cfg: MCTSConfig = MCTSConfig(),
                  device=None):
         if not env.cfg.gravity:
@@ -650,6 +654,7 @@ class FusedConnectNSearchV2:
             self._evaluate(static, evaluate_fn)
         self.reset(static, root_states)
         static.graphs[evaluate_fn] = graph
+        FusedConnectNSearchV2.captures += 1
         return graph
 
     def search_root_stats(

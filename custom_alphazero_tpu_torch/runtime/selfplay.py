@@ -21,7 +21,7 @@ are one-hot, so sampling them is the argmax).
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
@@ -32,14 +32,19 @@ from custom_alphazero_tpu_torch.config import (
 )
 from custom_alphazero_tpu_torch.envs.connect_n import ConnectN
 from custom_alphazero_tpu_torch.ops import fused_mcts_v2
+from custom_alphazero_tpu_torch.replay.codec import PackedObs
 from custom_alphazero_tpu_torch.runtime.evaluate import EvaluateFn
 from custom_alphazero_tpu_torch.search.mcts import MCTS
 
 
 class SelfPlayBatch(NamedTuple):
-    """Flattened (T*B) sample arrays, time-major, + validity mask."""
+    """Flattened (T*B) sample arrays, time-major, + validity mask.
 
-    obs: torch.Tensor     # (T*B, H, W, C)
+    ``obs`` is the raw observation tensor or, from a generation built with
+    an ``obs_codec``, the codec's ``PackedObs`` (bit-packed per ply, so the
+    raw T*B buffer of a large observation never exists)."""
+
+    obs: Any              # (T*B, H, W, C) tensor, or PackedObs
     policy: torch.Tensor  # (T*B, A)
     value: torch.Tensor   # (T*B,)
     valid: torch.Tensor   # (T*B,) bool: live ply of a non-excluded game
@@ -61,7 +66,7 @@ GenerateFn = Callable[[EvaluateFn, torch.Generator, int],
 def make_selfplay_fn(env: ConnectN, mcts_cfg: MCTSConfig,
                      sp_cfg: SelfPlayConfig, max_plies: int,
                      device=None, fused: bool = None,
-                     graph: bool = None) -> GenerateFn:
+                     graph: bool = None, obs_codec=None) -> GenerateFn:
     """Build ``generate(evaluate_fn, generator, batch_size)``.
 
     fused: search with the fused v2 kernel; None (the default) does so
@@ -70,7 +75,10 @@ def make_selfplay_fn(env: ConnectN, mcts_cfg: MCTSConfig,
     not ported and raise NotImplementedError.
     graph: the fused search's ``graph`` argument: None (the default)
     replays one captured CUDA graph per wave on the card; False launches
-    every wave from the host, for an evaluator that cannot be captured."""
+    every wave from the host, for an evaluator that cannot be captured.
+    obs_codec: a replay/codec.py ``BitplaneCodec``; when given, each ply's
+    observations are bit-packed as they are recorded and ``SelfPlayBatch.obs``
+    is the ``PackedObs``."""
     if mcts_cfg.reuse_tree:
         raise NotImplementedError(
             "mcts.reuse_tree is not ported yet (ROADMAP.md queue 1, "
@@ -129,7 +137,8 @@ def make_selfplay_fn(env: ConnectN, mcts_cfg: MCTSConfig,
             if sp_cfg.continuous:
                 next_states = fresh.where(done, next_states)
             states = next_states
-            obs_seq.append(obs)
+            obs_seq.append(obs_codec.encode(obs) if obs_codec is not None
+                           else obs)
             pi_seq.append(pi)
             active_seq.append(active)
             reward_seq.append(rewards)
@@ -149,7 +158,8 @@ def make_selfplay_fn(env: ConnectN, mcts_cfg: MCTSConfig,
                 sp_cfg, batch_size, max_plies, active_t, reward_t
             )
         batch = SelfPlayBatch(
-            obs=torch.cat(obs_seq),
+            obs=(PackedObs(*(torch.cat(parts) for parts in zip(*obs_seq)))
+                 if obs_codec is not None else torch.cat(obs_seq)),
             policy=torch.cat(pi_seq),
             value=z.reshape(-1).float(),
             valid=valid.reshape(-1),
@@ -209,7 +219,8 @@ def _plain_targets(sp_cfg, batch_size, max_plies, active, reward):
     won = results != 0
     odd_len = lengths % 2 == 1
     stats = SelfPlayStats(
-        games=torch.tensor(batch_size, dtype=torch.int32),
+        games=torch.tensor(batch_size, dtype=torch.int32,
+                           device=reward.device),
         plies=active.sum(),
         wins_first_mover=(won & odd_len).sum(),
         wins_second_mover=(won & ~odd_len).sum(),

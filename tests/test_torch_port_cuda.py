@@ -199,3 +199,149 @@ def test_capture_of_host_bound_evaluator_raises():
                                                  graph=False)
     want, _ = impl(env, cfg).search_root_stats(states, dyadic, None, 8)
     assert chip_smoke.same_bits(visits, want)
+
+
+def _small_samples(device, rows=600):
+    """A batch of well-formed samples on ``device`` from a numpy seed."""
+    import numpy as np
+
+    from custom_alphazero_tpu_torch.runtime.selfplay import SelfPlayBatch
+
+    rng = np.random.default_rng(0)
+    cells = rng.integers(0, 3, size=(rows, 6, 7))
+    obs = np.stack([cells == c for c in range(3)]
+                   + [np.broadcast_to(rng.integers(0, 2, (rows, 1, 1)),
+                                      (rows, 6, 7))], -1).astype(np.float32)
+    pi = rng.random((rows, 7)).astype(np.float32)
+    pi /= pi.sum(-1, keepdims=True)
+    return SelfPlayBatch(
+        *(torch.from_numpy(x).to(device) for x in (
+            obs, pi, rng.choice([-1.0, 0.0, 1.0], rows).astype(np.float32),
+            rng.random(rows) < 0.8)))
+
+
+@pytest.mark.cuda
+def test_replay_ring_on_card_equals_cpu_ring():
+    """The packed ring on the card after wrapping adds, and a sample from
+    it, equal the CPU ring's given the same batches and indices."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from custom_alphazero_tpu_torch.replay.buffer import (
+        replay_add,
+        replay_gather,
+        replay_init,
+        replay_sample_indices,
+    )
+    from custom_alphazero_tpu_torch.replay.codec import codec_for_env
+
+    env = ConnectN(ConnectNConfig())
+    codec = codec_for_env(env)
+    capacity = 1000
+    rings = {d: replay_init(capacity, env.obs_shape, 7, codec, device=d)
+             for d in ("cuda", "cpu")}
+    samples = _small_samples("cuda")
+    for i in range(4):
+        for d in rings:
+            batch = type(samples)(*(t.to(d) for t in samples))
+            rings[d] = replay_add(
+                rings[d], batch._replace(value=batch.value * (-1) ** i),
+                codec)
+    assert int(rings["cuda"].size) == capacity
+    for x, y in zip((*rings["cuda"].rows().obs, *rings["cuda"].rows()[1:]),
+                    (*rings["cpu"].rows().obs, *rings["cpu"].rows()[1:])):
+        assert torch.equal(x.cpu(), y)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    idx = replay_sample_indices(rings["cuda"], gen, 256)
+    assert len(set(idx.tolist())) == 256 and int(idx.max()) < capacity
+    for x, y in zip(replay_gather(rings["cuda"], idx, codec),
+                    replay_gather(rings["cpu"], idx.cpu(), codec)):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu():
+    """One float32 train step (clip and aux terms on) from the same state
+    and batch on the card and on the CPU, TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import copy
+
+    from custom_alphazero_tpu_torch.config import ModelConfig
+    from custom_alphazero_tpu_torch.runtime.train import (
+        init_train_state,
+        make_train_step,
+        new_train_state,
+    )
+
+    cfg = ModelConfig(depth=2, filters=32, value_hidden=64,
+                      compute_dtype="float32", grad_clip_norm=1.0)
+    cpu = init_train_state(7, cfg, torch.Generator().manual_seed(0),
+                           (6, 7, 4), device="cpu")
+    gpu = new_train_state(copy.deepcopy(cpu.net).cuda())
+    step = make_train_step(cfg, aux_value_weight=0.25, aux_value_batch=64,
+                           aux_policy_weight=0.5)
+    samples = _small_samples("cpu", 256)
+    aux = _small_samples("cpu", 100)
+    aux_pi = torch.eye(7)[aux.policy.argmax(-1)]
+    idx = torch.arange(64) % 100
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        metrics = {}
+        for state, d in ((cpu, "cpu"), (gpu, "cuda")):
+            for _ in range(3):
+                _, metrics[d] = step(
+                    state, samples.obs.to(d), samples.policy.to(d),
+                    samples.value.to(d), None, aux.obs.to(d),
+                    aux.value.to(d), aux_pi.to(d), idx.to(d))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    for term in ("loss", "policy_loss", "value_loss", "l2",
+                 "solver_value_loss", "solver_policy_loss"):
+        assert abs(float(getattr(metrics["cuda"], term))
+                   - float(getattr(metrics["cpu"], term))) < 1e-4, term
+    for x, y in zip(gpu.net.state_dict().values(),
+                    cpu.net.state_dict().values()):
+        assert (x.cpu() - y).abs().max() < 1e-4
+    assert gpu.steps == cpu.steps == 3
+
+
+@pytest.mark.cuda
+def test_arena_captures_two_graphs_per_pair():
+    """A searched arena on the card captures one graph per ply parity, and
+    none again on the next arena of the same pair, also after the
+    candidate's weights were changed in place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from custom_alphazero_tpu_torch.config import ArenaConfig, ModelConfig
+    from custom_alphazero_tpu_torch.ops.fused_mcts_v2 import (
+        FusedConnectNSearchV2,
+    )
+    from custom_alphazero_tpu_torch.runtime.arena import make_arena_fn
+    from custom_alphazero_tpu_torch.runtime.evaluate import make_evaluate_fn
+    from custom_alphazero_tpu_torch.runtime.train import init_train_state
+
+    device = torch.device("cuda")
+    env = ConnectN(ConnectNConfig())
+    gen = torch.Generator(device=device).manual_seed(0)
+    cfg = ModelConfig(depth=1, filters=16, value_hidden=32)
+    nets = [init_train_state(7, cfg, gen, env.obs_shape).net
+            for _ in range(2)]
+    candidate, incumbent = (make_evaluate_fn(net) for net in nets)
+    arena = make_arena_fn(env, ArenaConfig(evaluate_with_mcts=True),
+                          MCTSConfig(simulations=16, use_dirichlet=True,
+                                     dirichlet_alpha=1.0), 12)
+    before = FusedConnectNSearchV2.captures
+    first = arena(candidate, incumbent, gen, 32)
+    assert FusedConnectNSearchV2.captures - before == 2
+    with torch.no_grad():
+        for p in nets[0].parameters():
+            p.mul_(0.5)
+    second = arena(candidate, incumbent, gen, 32)
+    assert FusedConnectNSearchV2.captures - before == 2
+    for result in (first, second):
+        assert int(result.wins + result.losses + result.draws) == 32
+        assert bool((result.log.movers[0, :16] == 0).all())

@@ -22,7 +22,8 @@ from custom_alphazero_tpu_torch.ops.rng import safe_gamma
 from custom_alphazero_tpu_torch.runtime.selfplay import make_selfplay_fn
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "custom_alphazero_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
+             "custom_alphazero_tpu")
 
 
 @pytest.mark.parametrize("alpha", [1.0, 2.5, 0.3])
@@ -55,11 +56,15 @@ def _imported_modules(path: pathlib.Path):
 
 def test_port_imports_no_jax():
     """The port package and chip_smoke.py import nothing of JAX, Flax,
-    Optax or the JAX package. An AST scan: the test process itself has JAX
-    loaded, so sys.modules proves nothing."""
+    Optax, msgpack or the JAX package. An AST scan: the test process itself
+    has JAX loaded, so sys.modules proves nothing."""
     files = sorted((REPO / "custom_alphazero_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    learner_side = {"codec.py", "buffer.py", "losses.py", "train.py",
+                    "arena.py", "loop.py", "metrics.py", "watchdog.py",
+                    "paths.py", "checkpoint.py", "convert.py"}
+    assert learner_side <= {path.name for path in files}
     for path in files:
         for module in _imported_modules(path):
             root = module.split(".")[0]
