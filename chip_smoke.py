@@ -62,14 +62,29 @@ Phases (any failed check raises and exits non-zero):
    replays against host launches, bit-equal; then two arenas: the counts
    add up, the log is consistent, two graph captures, then none. Prints
    their seconds and K1's launches.
-12. The entry point: ``run(cfg, generations=2)`` on the c4-r5 config
-   (solver scoring and tree rendering off, arena and checkpoint every 20
-   steps) in a temporary directory seeded with the committed training
-   state: both generations train, both arenas run, the checkpoint restores
-   with a matching hash. Prints each generation's seconds by phase, K1's
-   launches and the graph captures (three: self-play's one, the arena's
-   two).
-13. The kernels' JSON line, the card's line, and the result line.
+12. The entry point: ``run(cfg, generations=2)`` on the committed c4-r5
+   config with only its frequencies lowered (arena and checkpoint every 20
+   steps, a tree render every generation; solver scoring on) in a
+   temporary directory seeded with the committed training state: both
+   generations train, both arenas run and are solver-scored (the line, the
+   metric, positions and seconds), every render's root edges hold the
+   search's 249 visits, the ``updated_mcts`` renders follow a promotion in
+   the first arena, the checkpoint restores with a matching hash. Prints
+   each generation's seconds by phase, K1's launches and the graph captures
+   (three: self-play's one, the arena's two; the renders' general search
+   adds none).
+13. The supervisor: ``python -m custom_alphazero_tpu_torch.runtime.supervisor``
+   with the flags of ``run_c4_r5.sh`` word for word, then
+   ``--run.results_dir=<a copy of phase 12's run> --run.run_id=smoke
+   --loop.generations=1``, from the repo root: it resumes at step 11,640,
+   trains 20 steps, exits 0, and its checkpoint restores at step 11,660.
+14. The strength tool with the committed net: ``labeled_policy_accuracy``
+   on the 2,000 positions of data/eval_labels.npz in float32 on the card
+   (TF32 off) and on the CPU (at most 2 argmax moves may differ), and in
+   bf16 on the card; ``evaluate_strength`` at 250 simulations against the
+   perfect opponent, 2 games from 12 random plies; the solver oracle as the
+   general search's evaluator on the card keeps a won position's win.
+15. The kernels' JSON line, the card's line, and the result line.
 
 ``python3 chip_smoke.py --launch-shapes`` runs a tuning aid in place of the
 phases: K1 built with 1, 2, 4 and 8 games (warps) per block, each checked
@@ -81,7 +96,11 @@ from __future__ import annotations
 import json
 import math
 import os
+import platform
+import re
+import shlex
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -95,6 +114,9 @@ TRAINING_STATE = os.path.join(REPO, "artifacts", "c4-r5",
                               "final_training_state")
 C4R5_CONFIG = os.path.join(REPO, "artifacts", "c4-r5", "config.json")
 LABELS = os.path.join(REPO, "data", "train_labels_r5.npz")
+EVAL_LABELS = os.path.join(REPO, "data", "eval_labels.npz")
+RUN_C4_R5 = os.path.join(REPO, "run_c4_r5.sh")
+SUPERVISOR_TIMEOUT_S = 300
 RING_CAPACITY = 400_000
 TRAIN_BATCH = 1024
 AUX_BATCH = 256
@@ -853,33 +875,96 @@ def arena_phase(env, mcts_cfg, net, gen, device):
     return launches
 
 
+class Tee:
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def host_cpu() -> str:
+    """The host's CPU model, as lscpu or /proc/cpuinfo name it."""
+    try:
+        lines = subprocess.run(["lscpu"], capture_output=True,
+                               text=True).stdout.splitlines()
+    except OSError:
+        lines = []
+    if os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as fp:
+            lines += fp.read().splitlines()
+    for key in ("Model name", "model name", "Model", "cpu model"):
+        for line in lines:
+            name, _, value = line.partition(":")
+            if name.strip() == key and value.strip():
+                return value.strip()
+    return platform.machine() or "unknown"
+
+
+def root_edge_visits(dot_path: str) -> int:
+    """Sum of the N= labels on the root's edges of a rendered tree."""
+    with open(dot_path) as fp:
+        return sum(int(n) for n in re.findall(r"^  n0 -> n\d+ .*N=(\d+) ",
+                                              fp.read(), re.M))
+
+
 def learner_phase(device):
-    """Phase 12; returns K1's launches over the run."""
+    """Phase 12; returns (K1's launches over the run, a copy of the run's
+    results directory for phase 13)."""
     from custom_alphazero_tpu_torch.config import apply_overrides, from_json
     from custom_alphazero_tpu_torch.io.checkpoint import load_checkpoint
     from custom_alphazero_tpu_torch.ops import fused_mcts_v2
     from custom_alphazero_tpu_torch import paths
     from custom_alphazero_tpu_torch.runtime.loop import run
+    from custom_alphazero_tpu_torch.tools import strength
 
     with open(C4R5_CONFIG) as fp:
         cfg = from_json(fp.read())
     results = tempfile.mkdtemp(prefix="chip_smoke_")
+    # Solver scoring starts from an empty solve cache, as on a fresh machine.
+    os.environ["CAZ_SOLVER_CACHE"] = os.path.join(results, "solver_cache.npz")
+    scored = []  # (positions, seconds, score) per arena
+    score_arena_log = strength.score_arena_log
+
+    def counted(log):
+        # The loop's call, timed, with the number of positions it scores
+        # (candidate moves from ply 8 on, at most 200).
+        active, movers = log.active.cpu().numpy(), log.movers.cpu().numpy()
+        candidates = int((active[8:] & (movers[8:] == 0)).sum())
+        t0 = time.perf_counter()
+        score = score_arena_log(log)
+        scored.append((min(candidates, 200), time.perf_counter() - t0,
+                       score))
+        return score
+
+    tee = Tee(sys.stdout)
     try:
         cfg = apply_overrides(cfg, {
-            "arena.evaluate_with_solver": "false",
-            "loop.visualize_frequency": "0",
+            "loop.visualize_frequency": "1",
             "arena.evaluation_frequency": "20",
             "arena.checkpoint_frequency": "20",
             "loop.solver_labels_path": LABELS,
             "run.results_dir": results,
             "run.run_id": "smoke",
         })
+        check(cfg.arena.evaluate_with_solver, "learner: solver scoring off")
         training_dir = paths.training_path(results, cfg.game, "smoke")
         shutil.copytree(TRAINING_STATE, training_dir)
         _, meta0 = load_checkpoint(training_dir)
         captures = fused_mcts_v2.FusedConnectNSearchV2.captures
         fused_mcts_v2.wave_step.launches = 0
         fused_mcts_v2.wave_step_reference.calls = 0
+        strength.score_arena_log = counted
+        sys.stdout = tee
         t0 = time.perf_counter()
         summary = run(cfg, generations=2)
         wall = time.perf_counter() - t0
@@ -890,17 +975,64 @@ def learner_phase(device):
         tree, meta = load_checkpoint(training_dir)  # checks the hash
         evaluations = sorted(os.listdir(
             paths.evaluation_path(results, cfg.game, "smoke")))
+        with open(os.path.join(paths.tensorboard_path(
+                results, cfg.game, "smoke"), "metrics.jsonl")) as fp:
+            solver_metrics = {m["step"]: m["value"] for m in map(
+                json.loads, fp) if m["tag"] == "evaluation/solver_score"}
+        renders = {}
+        for g in range(2):
+            renders[g] = root_edge_visits(os.path.join(
+                paths.self_play_iteration_path(results, cfg.game, "smoke", g),
+                f"mcts_iteration_{g}_light.dot"))
+        updated_dir = paths.updated_mcts_path(results, cfg.game, "smoke")
+        updated = sorted(name for name in os.listdir(updated_dir)
+                         if name.endswith(".dot"))
+        if updated:
+            renders["updated"] = [root_edge_visits(
+                os.path.join(updated_dir, name)) for name in updated]
+        run_copy = tempfile.mkdtemp(prefix="chip_smoke_run_")
+        shutil.copytree(paths.run_path(results, cfg.game, "smoke"),
+                        paths.run_path(run_copy, cfg.game, "smoke"))
     finally:
+        sys.stdout = tee.stream
+        strength.score_arena_log = score_arena_log
         shutil.rmtree(results, ignore_errors=True)
+    out = tee.text()
     steps = cfg.loop.train_iterations_per_generation
+    arenas = [meta0["steps"] + steps, meta0["steps"] + 2 * steps]
     check(summary["iterations"] == meta0["steps"] + 2 * steps
           == meta["steps"] == int(tree["steps"]),
           f"learner: {summary['iterations']} iterations, checkpoint at "
           f"{meta['steps']}, started from {meta0['steps']}")
     check(summary["last_arena_score"] is not None, "learner: no arena ran")
-    check(evaluations == [f"iteration_{meta0['steps'] + steps}",
-                          f"iteration_{meta0['steps'] + 2 * steps}"],
+    check(evaluations == [f"iteration_{i}" for i in arenas],
           f"learner: evaluation checkpoints {evaluations}")
+    # Solver scoring after both arenas: the line, the metric, the count.
+    check(len(scored) == 2, f"learner: {len(scored)} solver scorings")
+    for iteration, (positions, seconds, score) in zip(arenas, scored):
+        line = re.search(rf"\[iter {iteration}\] solver score=([0-9.]+)", out)
+        check(line is not None and 0.0 <= float(line.group(1)) <= 1.0,
+              f"learner: no solver score line at iteration {iteration}")
+        check(iteration in solver_metrics
+              and abs(solver_metrics[iteration] - score) < 1e-6,
+              f"learner: no evaluation/solver_score at {iteration}")
+        log(f"learner arena at step {iteration}: solver score {score:.4f} "
+            f"from {positions} positions in {seconds:.2f} s "
+            f"({1e3 * seconds / max(positions, 1):.1f} ms per position)")
+    # Renders: every generation's light tree holds the search's root visits
+    # (simulations - 1 from the opening); after a promotion in the first
+    # generation's arena, the second generation's render is archived too.
+    for g in range(2):
+        check(renders[g] == SIMS - 1, f"learner: generation {g}'s render "
+              f"has {renders[g]} root visits, expected {SIMS - 1}")
+    promoted_first = re.search(rf"\[iter {arenas[0]}\] arena score=.* "
+                               r"promoted=True", out) is not None
+    expected = (["mcts_iteration_1_full.dot", "mcts_iteration_1_light.dot"]
+                if promoted_first else [])
+    check(updated == expected, f"learner: updated renders {updated}, "
+          f"expected {expected}")
+    check(all(n == SIMS - 1 for n in renders.get("updated", [])),
+          f"learner: updated renders' root visits {renders.get('updated')}")
     for timing in summary["timings"]:
         check(timing["train_iterations"] == steps,
               f"generation {timing['generation']} trained "
@@ -908,11 +1040,14 @@ def learner_phase(device):
         log(f"learner generation {timing['generation']}: "
             f"{timing['samples']} samples, "
             f"{timing['sims_per_second']:.0f} sims/s; seconds: generate "
-            f"{timing['generate_s']:.2f}, replay {timing['replay_s']:.3f}, "
+            f"{timing['generate_s']:.2f}, render "
+            f"{timing['render_s']:.2f}, replay {timing['replay_s']:.3f}, "
             f"train {timing['train_s']:.3f} ({steps} steps), arena "
-            f"{timing['arena_s']:.2f}, checkpoint "
+            f"{timing['arena_s']:.2f}, solver scoring "
+            f"{timing['solver_score_s']:.2f}, checkpoint "
             f"{timing['checkpoint_s']:.3f}")
-    # Self-play's graph over the best net once, the arena's two once.
+    # Self-play's graph over the best net once, the arena's two once; the
+    # renders' general search captures nothing and launches no K1.
     check(captures == 3, f"learner: {captures} graph captures, expected 3")
     expected = (4 * MAX_PLIES * (SIMS + 1)
                 + captures * fused_mcts_v2.WARMUP_WAVES)
@@ -922,8 +1057,165 @@ def learner_phase(device):
         f"{summary['promotions']} promotions, steps {meta0['steps']} -> "
         f"{meta['steps']}, checkpoint restored with a matching hash; "
         f"{launches} kernel launches; {captures} graph captures (self-play "
-        f"1, arena 2)")
-    return launches
+        f"1, arena 2); renders {renders}")
+    return launches, run_copy
+
+
+def run_c4_r5_flags() -> list:
+    """The flags of run_c4_r5.sh's command, word for word as bash passes
+    them: the supervisor's, then the loop's."""
+    with open(RUN_C4_R5) as fp:
+        script = fp.read().replace("\\\n", " ")
+    command = next(line for line in script.splitlines()
+                   if line.startswith("exec "))
+    return [word for word in shlex.split(command) if word.startswith("--")]
+
+
+def supervisor_phase(run_copy: str) -> None:
+    """Phase 13: the supervisor with run_c4_r5.sh's flags, resuming phase
+    12's run for one generation in a subprocess from the repo root."""
+    from custom_alphazero_tpu_torch import paths
+    from custom_alphazero_tpu_torch.io.checkpoint import load_checkpoint
+
+    flags = run_c4_r5_flags()
+    check(flags[0] == "--supervise.liveness_timeout_minutes=10"
+          and "--arena.evaluate_with_solver=true" in flags
+          and "--loop.visualize_frequency=100" in flags,
+          f"run_c4_r5.sh flags: {flags}")
+    cmd = [sys.executable, "-m", "custom_alphazero_tpu_torch.runtime.supervisor",
+           *flags, f"--run.results_dir={run_copy}", "--run.run_id=smoke",
+           "--loop.generations=1"]
+    try:
+        t0 = time.perf_counter()
+        # A process group of its own, so that a timeout ends the loop under
+        # the supervisor too.
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            out = proc.communicate(timeout=SUPERVISOR_TIMEOUT_S)[0]
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise
+        wall = time.perf_counter() - t0
+        for line in out.splitlines()[-12:]:
+            log(f"  supervisor | {line}")
+        check(proc.returncode == 0, f"supervisor exited {proc.returncode}")
+        check("Resumed training state at step 11640" in out and "[gen 0]" in out,
+              "supervisor: the loop did not resume at step 11640 and play")
+        tree, meta = load_checkpoint(paths.training_path(
+            run_copy, "connect_n", "smoke"))  # checks the hash
+        check(meta["steps"] == int(tree["steps"]) == 11660,
+              f"supervisor: checkpoint at step {meta['steps']}")
+    finally:
+        shutil.rmtree(run_copy, ignore_errors=True)
+    log(f"supervisor: `python -m custom_alphazero_tpu_torch.runtime."
+        f"supervisor` with run_c4_r5.sh's {len(flags)} flags + 3 overrides "
+        f"exited 0 in {wall:.1f} s; steps 11640 -> 11660, checkpoint "
+        f"restored with a matching hash")
+
+
+def strength_phase(device) -> None:
+    """Phase 14: the strength tool on the card with the committed net."""
+    import numpy as np
+
+    from custom_alphazero_tpu_torch import paths
+    from custom_alphazero_tpu_torch import solver as sv
+    from custom_alphazero_tpu_torch.config import (
+        MCTSConfig,
+        apply_overrides,
+        from_json,
+        to_json,
+    )
+    from custom_alphazero_tpu_torch.search.mcts import MCTS
+    from custom_alphazero_tpu_torch.tools import strength
+
+    results = tempfile.mkdtemp(prefix="chip_smoke_strength_")
+    os.environ["CAZ_SOLVER_CACHE"] = os.path.join(results, "solver_cache.npz")
+    try:
+        with open(C4R5_CONFIG) as fp:
+            cfg = from_json(fp.read())
+        for run_id, dtype in (("fp32", "float32"), ("bf16", "bfloat16")):
+            run_dir = paths.run_path(results, "connect_n", run_id)
+            os.makedirs(run_dir)
+            with open(os.path.join(run_dir, "config.json"), "w") as fp:
+                fp.write(to_json(apply_overrides(
+                    cfg, {"model.compute_dtype": dtype})))
+            shutil.copytree(CHECKPOINT, paths.evaluation_iteration_path(
+                results, "connect_n", run_id, 11600))
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        loaded = {(run_id, d): strength.load_run_model(run_id, results,
+                                                       device=d)
+                  for run_id, d in (("fp32", device), ("fp32", "cpu"),
+                                    ("bf16", device))}
+        with np.load(EVAL_LABELS) as data:
+            obs = data["obs"]
+        legal = obs[:, 0, :, 1] + obs[:, 0, :, 2] == 0
+        choices = {}
+        for key, (_, evaluate, _, meta) in loaded.items():
+            probs, _ = evaluate(torch.from_numpy(obs).to(key[1]))
+            choices[key] = np.where(legal, probs.float().cpu().numpy(),
+                                    -1.0).argmax(-1)
+            report, ms = timed(lambda: strength.labeled_policy_accuracy(
+                evaluate, EVAL_LABELS, device=key[1]))
+            log(f"labeled policy accuracy, {key[0]} on {key[1]} (c4-r5 step "
+                f"{meta['steps']}, {len(obs)} positions, {ms:.0f} ms): "
+                f"{json.dumps(report)}")
+        differ = int((choices[("fp32", device)]
+                      != choices[("fp32", "cpu")]).sum())
+        bf16_differ = int((choices[("bf16", device)]
+                           != choices[("fp32", device)]).sum())
+        log(f"argmax moves, float32 card vs float32 CPU: {differ} of "
+            f"{len(obs)} differ; bf16 card vs float32 card: {bf16_differ}")
+        check(differ <= 2, f"{differ} float32 moves differ between the card "
+              f"and the CPU")
+        torch.backends.cudnn.allow_tf32 = True
+
+        env, evaluate, _, _ = loaded[("bf16", device)]
+        t0 = time.perf_counter()
+        report = strength.evaluate_strength(
+            env, evaluate, num_games=2, use_mcts=True,
+            mcts_cfg=MCTSConfig(simulations=SIMS), opponent="perfect",
+            opening_plies=12, device=device)
+        wall = time.perf_counter() - t0
+        check(report["positions"] > 0
+              and 0.0 <= report["move_accuracy"] <= 1.0
+              and 0.0 <= report["mean_rank_score"] <= 1.0
+              and len(report["results"]) == 2,
+              f"evaluate_strength report {report}")
+        log(f"evaluate_strength (bf16 net, general search {SIMS} sims at "
+            f"B=1, vs perfect, 2 games from 12 random plies) in {wall:.1f} "
+            f"s: {json.dumps(report)}")
+
+        # The oracle as the search's evaluator, on the card: from a won
+        # midgame (solver score 18) it must keep the win.
+        board = np.zeros((6, 7), np.int8)
+        state = env.init(1, device)
+        for col in (3, 0, 3, 0, 3, 1):
+            board, _ = sv.play_canonical(board, col)
+            state, _ = env.step(state, torch.tensor([col], device=device))
+        check(torch.equal(state.board[0].cpu(), torch.from_numpy(board)),
+              "oracle: the env's board differs from the solver's")
+        solver = sv.ConnectFourSolver(cache=None)
+        check(solver.solve_board(board) == 18, "oracle: the position's score")
+        mcts = MCTS(env, MCTSConfig(simulations=16))
+        t0 = time.perf_counter()
+        tree = mcts.search(state, sv.make_solver_evaluate_fn(7), None, 16)
+        visits = mcts.root_child_visits(tree)[0].cpu()
+        wall = time.perf_counter() - t0
+        action = int(visits.argmax())
+        child, ended = sv.play_canonical(board, action)
+        wins = (sv._board_has_win(-child) if ended
+                else solver.solve_board(child) < 0)
+        check(wins, f"oracle search chose column {action}, which does not "
+              f"win (visits {visits.tolist()})")
+        log(f"oracle evaluator in the general search on the card (16 sims "
+            f"from [3, 0, 3, 0, 3, 1], score 18): column {action}, a win; "
+            f"root visits {visits.tolist()}; {wall:.2f} s")
+    finally:
+        shutil.rmtree(results, ignore_errors=True)
 
 
 def launch_shapes(device) -> None:
@@ -979,7 +1271,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     device = torch.device("cuda")
     log(f"device: {torch.cuda.get_device_name(0)} | {card} | torch "
-        f"{torch.__version__} cuda {torch.version.cuda}")
+        f"{torch.__version__} cuda {torch.version.cuda} | host CPU "
+        f"{host_cpu()}, {os.cpu_count()} cores (the solver runs on the host)")
 
     # ---- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -1125,9 +1418,15 @@ def main() -> int:
     arena_launches = arena_phase(env, mcts_cfg, net_bf16, gen, device)
 
     # ---- 12. the entry point ------------------------------------------------
-    learner_launches = learner_phase(device)
+    learner_launches, run_copy = learner_phase(device)
 
-    # ---- 13. result lines ---------------------------------------------------
+    # ---- 13. the supervisor with run_c4_r5.sh's flags -----------------------
+    supervisor_phase(run_copy)
+
+    # ---- 14. the strength tool ----------------------------------------------
+    strength_phase(device)
+
+    # ---- 15. result lines ---------------------------------------------------
     k2_err, k2_ms, k2_plain_ms, k2_bound_ms, k2_carry_bound_ms, k2_fit = k2
     check(k2_launches > 0 and k2_err == 0.0, "K2 did not run or disagreed")
     kernels = [{

@@ -6,7 +6,12 @@
     3. run K training iterations on the *candidate* net; every
        ``checkpoint_frequency`` iterations checkpoint, every
        ``evaluation_frequency`` iterations run the arena and promote the
-       candidate to best on a score at or above the threshold.
+       candidate to best on a score at or above the threshold; with
+       ``arena.evaluate_with_solver`` the arena's candidate moves are then
+       scored by the exact solver on the host, and
+       ``arena.solver_score_veto`` blocks a promotion whose solver score
+       falls below the reigning best's by more than the margin;
+    4. every ``visualize_frequency`` generations, render one search tree.
 
 Run:  python -m custom_alphazero_tpu_torch.runtime.loop --mcts.simulations=64 ...
 
@@ -18,7 +23,9 @@ file are the JAX loop's. What differs by design:
   so the CUDA graph that the self-play search captured over it stays valid;
 - one ``torch.Generator`` on the device, seeded from ``run.seed``, feeds
   generation, replay sampling, auxiliary sampling and the arena, in the
-  loop's order (the random streams are torch's, not JAX's);
+  loop's order (the random streams are torch's, not JAX's); a tree render
+  draws its root noise from a generator of its own, seeded from the
+  generation's index;
 - the device is read once per generation for the stats, once for the ring's
   size, and once per train step for the loss terms.
 """
@@ -85,6 +92,9 @@ from custom_alphazero_tpu_torch.runtime.watchdog import (
     start_watchdog,
     touch_liveness_file,
 )
+from custom_alphazero_tpu_torch.search.mcts import MCTS
+from custom_alphazero_tpu_torch.tools import strength
+from custom_alphazero_tpu_torch.tools.visualize import save_tree
 
 
 def max_game_plies(cfg: Config) -> int:
@@ -110,12 +120,6 @@ def _check_ported(cfg: Config) -> None:
     """Raise for every setting whose code is not ported, before anything
     runs."""
     not_ported = (
-        (cfg.arena.evaluate_with_solver, "arena.evaluate_with_solver",
-         "Solver oracle"),
-        (cfg.arena.solver_score_veto, "arena.solver_score_veto",
-         "Solver oracle"),
-        (cfg.loop.visualize_frequency > 0, "loop.visualize_frequency > 0",
-         "Supervisor and tree rendering"),
         (cfg.mesh.data_parallelism > 1, "mesh.data_parallelism > 1",
          "Multi-GPU"),
         (cfg.mesh.model_parallelism > 1, "mesh.model_parallelism > 1",
@@ -303,6 +307,33 @@ def _save_samples(learner: Learner, batch, path: str) -> None:
              values=batch.value[valid].cpu().numpy())
 
 
+def _visualize_tree(learner: Learner, generation: int, results_dir: str,
+                    game: str, run_id: str, updated: bool = False) -> None:
+    """Render one search tree from the opening position with the best net:
+    a 'light' (visited edges) render per call under
+    self_play/iteration_{generation}; when the best net changed since the
+    last render (``updated``), light and full renders under
+    self_play/updated_mcts as well. The search is the general one at B=1,
+    launched from the host (no CUDA graph), with ``cfg.mcts`` and its root
+    noise drawn from a generator seeded with ``generation``."""
+    cfg = learner.cfg
+    generator = torch.Generator(device=learner.device)
+    generator.manual_seed(generation)
+    tree = MCTS(learner.env, cfg.mcts).search(
+        learner.env.init(1, learner.device), learner.evaluate_best,
+        generator, cfg.mcts.simulations)
+    name = f"mcts_iteration_{generation}"
+    save_tree(tree, learner.env, os.path.join(
+        paths.self_play_iteration_path(results_dir, game, run_id, generation),
+        f"{name}_light"), c_puct=cfg.mcts.c_puct)
+    if updated:
+        updated_dir = paths.updated_mcts_path(results_dir, game, run_id)
+        save_tree(tree, learner.env, os.path.join(updated_dir, f"{name}_light"),
+                  c_puct=cfg.mcts.c_puct)
+        save_tree(tree, learner.env, os.path.join(updated_dir, f"{name}_full"),
+                  c_puct=cfg.mcts.c_puct, min_visits=0)
+
+
 def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
     """Train; returns a summary dict (for tests and tools). ``device=None``
     is the CUDA card."""
@@ -345,6 +376,16 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
     summary = {"run_id": run_id, "iterations": 0, "promotions": 0,
                "last_arena_score": None, "timings": []}
     pending_save = None
+    best_updated = False  # the best net changed since the last render
+    # The oracle score of the reigning best, set at its promotion arena
+    # (arena.solver_score_veto; None until the first promotion after the
+    # start: the veto never fires before that).
+    best_solver_score = None
+    # Solver scoring runs on the default 7x6 n=4 board only (the native
+    # solver's); elsewhere the setting scores nothing.
+    solver_eval_ran = (cfg.arena.evaluate_with_solver
+                       and cfg.game == "connect_n"
+                       and cfg.connect_n == type(cfg.connect_n)())
 
     touch_liveness_file()
     # Keep the liveness file fresh through generation 0 (kernel build,
@@ -409,7 +450,8 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
             timing = {"generation": generation, "samples": samples,
                       "generate_s": generate_time,
                       "replay_s": gen_time - generate_time, "train_s": 0.0,
-                      "arena_s": 0.0, "checkpoint_s": 0.0,
+                      "arena_s": 0.0, "solver_score_s": 0.0,
+                      "checkpoint_s": 0.0, "render_s": 0.0,
                       "train_iterations": 0}
             summary["timings"].append(timing)
             _beat()
@@ -419,6 +461,14 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
             if freq and (generation + 1) % freq == 0:
                 _save_samples(learner, batch, paths.samples_path(
                     results_dir, game, run_id, generation))
+            vfreq = cfg.loop.visualize_frequency
+            if vfreq and (generation + 1) % vfreq == 0:
+                render_start = time.time()
+                _visualize_tree(learner, generation, results_dir, game,
+                                run_id, updated=best_updated)
+                best_updated = False
+                timing["render_s"] = time.time() - render_start
+                _beat()
             sims = plies * cfg.mcts.simulations
             timing["sims_per_second"] = sims / max(gen_time, 1e-9)
             print(
@@ -548,10 +598,50 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
                         )
                         metrics.scalar("evaluation/winning_score", score,
                                        iteration)
+                        timing["arena_s"] += time.time() - arena_start
+                        solver_score = None
+                        if solver_eval_ran:
+                            # Exact solves on the host can take minutes:
+                            # live compute, so the liveness file is kept
+                            # fresh for a bounded window.
+                            score_start = time.time()
+                            score_grace = (
+                                CompileGraceToucher(15 * 60.0)
+                                if cfg.run.compile_grace_minutes > 0
+                                else None
+                            )
+                            try:
+                                solver_score = strength.score_arena_log(
+                                    result.log)
+                            finally:
+                                if score_grace is not None:
+                                    score_grace.stop()
+                            timing["solver_score_s"] += (time.time()
+                                                         - score_start)
+                            print(f"[iter {iteration}] solver score="
+                                  f"{solver_score:.3f}")
+                            metrics.scalar("evaluation/solver_score",
+                                           solver_score, iteration)
+                        # The veto is decided before the promotion, which
+                        # copies in place and cannot be undone.
+                        margin = cfg.arena.solver_score_veto_margin
+                        if (promoted and cfg.arena.solver_score_veto
+                                and solver_score is not None
+                                and best_solver_score is not None
+                                and solver_score < best_solver_score - margin):
+                            promoted = False
+                            print(
+                                f"[iter {iteration}] solver-score veto: "
+                                f"candidate {solver_score:.3f} < best "
+                                f"{best_solver_score:.3f} - {margin}"
+                                " — promotion blocked"
+                            )
                         if promoted:
                             learner.promote()
                             summary["promotions"] += 1
-                        timing["arena_s"] += time.time() - arena_start
+                            best_updated = True
+                            if solver_score is not None:
+                                best_solver_score = solver_score
                         # The *winner*'s weights land in
                         # evaluation/iteration_N: the candidate when
                         # promoted, the incumbent otherwise.

@@ -345,3 +345,37 @@ def test_arena_captures_two_graphs_per_pair():
     for result in (first, second):
         assert int(result.wins + result.losses + result.draws) == 32
         assert bool((result.log.movers[0, :16] == 0).all())
+
+
+@pytest.mark.cuda
+def test_oracle_and_tree_render_on_card():
+    """The solver oracle takes card observations and answers on the card,
+    as on the CPU; a search tree on the card renders to the same DOT text
+    as the same search on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from custom_alphazero_tpu_torch import solver
+    from custom_alphazero_tpu_torch.search.mcts import MCTS
+    from custom_alphazero_tpu_torch.tools.visualize import tree_to_dot
+
+    device = torch.device("cuda")
+    env = ConnectN(ConnectNConfig())
+    state = env.init(1, device)
+    for col in (3, 0, 3, 0, 3, 1):  # the side to move wins in column 3
+        state, _ = env.step(state, torch.tensor([col], device=device))
+    oracle = solver.make_solver_evaluate_fn(7)
+    probs, values = oracle(env.observe(state))
+    assert probs.device == values.device == state.board.device
+    assert probs.cpu().tolist() == [[0, 0, 0, 1, 0, 0, 0]]
+    assert values.cpu().tolist() == [1.0]
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    states = chip_smoke.random_positions(env, 3, 20, gen, device)
+    cpu_states = type(states)(*(t.cpu() for t in vars(states).values()))
+    mcts = MCTS(env, MCTSConfig(simulations=32))
+    evaluate = chip_smoke.dyadic_evaluate(7)
+    tree = mcts.search(states, evaluate, None, 32)
+    cpu_tree = mcts.search(cpu_states, evaluate, None, 32)
+    for game in range(3):
+        assert tree_to_dot(tree, env, game) == tree_to_dot(cpu_tree, env,
+                                                           game)

@@ -69,8 +69,13 @@ def _metrics(tmp_path, run_id):
         return [json.loads(line) for line in fp]
 
 
+# Games cut at 12 plies (kept as draws) make a generation and an arena a
+# third as long as full 42-ply games on the CPU.
+SHORT_GAMES = {"self_play.max_plies": "12", "self_play.exclude_draws": "false"}
+
+
 def test_loop_end_to_end_and_resume(tmp_path, capsys):
-    summary = run(_tiny_cfg(tmp_path, "t1", 3), device="cpu")
+    summary = run(_tiny_cfg(tmp_path, "t1", 3, **SHORT_GAMES), device="cpu")
     assert summary["iterations"] == 6
     assert summary["last_arena_score"] is not None
     assert [t["train_iterations"] for t in summary["timings"]] == [2, 2, 2]
@@ -101,7 +106,7 @@ def test_loop_end_to_end_and_resume(tmp_path, capsys):
             "evaluation/winning_score"} <= tags
 
     # Resume: steps, ring and best model continue from the checkpoint.
-    summary2 = run(_tiny_cfg(tmp_path, "t1", 2), device="cpu")
+    summary2 = run(_tiny_cfg(tmp_path, "t1", 2, **SHORT_GAMES), device="cpu")
     assert summary2["iterations"] == 10
     out = capsys.readouterr().out
     assert f"Resumed training state at step 6 (replay={int(replay['size'])})" \
@@ -296,6 +301,7 @@ def test_loop_with_aux_targets(tmp_path, policy_weight):
         "loop.solver_value_weight": "0.5",
         "loop.solver_policy_weight": str(policy_weight),
         "loop.solver_value_batch": "16",
+        **SHORT_GAMES,
     })
     summary = run(cfg, device="cpu")
     assert summary["iterations"] >= 2
@@ -313,10 +319,6 @@ def test_loop_with_aux_targets(tmp_path, policy_weight):
 
 
 @pytest.mark.parametrize("overrides, item", [
-    ({"arena.evaluate_with_solver": "true"}, "Solver oracle"),
-    ({"arena.evaluate_with_solver": "true",
-      "arena.solver_score_veto": "true"}, "Solver oracle"),
-    ({"loop.visualize_frequency": "5"}, "Supervisor and tree rendering"),
     ({"game": "chess"}, "Chess engine"),
     ({"mesh.data_parallelism": "4"}, "Multi-GPU"),
     ({"mesh.model_parallelism": "2"}, "Multi-GPU"),
