@@ -67,7 +67,8 @@ Phases (any failed check raises and exits non-zero):
    steps, a tree render every generation; solver scoring on) in a
    temporary directory seeded with the committed training state: both
    generations train, both arenas run and are solver-scored (the line, the
-   metric, positions and seconds), every render's root edges hold the
+   metric, positions and seconds; the second arena on 20 positions, not
+   200, for time), every render's root edges hold the
    search's 249 visits, the ``updated_mcts`` renders follow a promotion in
    the first arena, the checkpoint restores with a matching hash. Prints
    each generation's seconds by phase, K1's launches and the graph captures
@@ -84,7 +85,30 @@ Phases (any failed check raises and exits non-zero):
    bf16 on the card; ``evaluate_strength`` at 250 simulations against the
    perfect opponent, 2 games from 12 random plies; the solver oracle as the
    general search's evaluator on the card keeps a won position's win.
-15. The kernels' JSON line, the card's line, and the result line.
+15. Chess engine: perft on the card equal to the published counts (every
+   depth of six positions, start position depth 4, Kiwipete depth 3); 128
+   random games of 40 plies played on the card and on the CPU with every
+   state field, reward and observation equal after every ply; ``step``,
+   ``step_lite`` and ``observe`` times at B=128.
+16. Gumbel search on the card against the CPU: one search with the
+   chess-r5 settings (100 simulations, m=16, top-K K=100) from 128 of phase
+   15's positions, the committed net in float32 (TF32 off), the same Gumbel
+   draws: actions and root visits equal in every game but one whose search
+   took a decision closer than 1e-5 (relative), which is printed.
+17. chess-r5 Gumbel self-play in bf16 (B=128, 100 simulations, continuous)
+   for 8 plies: simulations/s and the samples' checks, one search split by
+   part (precompute, descent, env, net, backup), one profiled ply.
+18. The entry point on chess: ``run(cfg, generations=1)`` on the committed
+   chess-r5 config from its training state (step 2800), with 8-ply plain
+   generation (8-ply games never end, so continuous generation keeps no
+   sample), ``replay.min_size=512``, no sample-reuse clamp, arena and
+   checkpoint every 16 steps: 16 steps trained, a 64-game MCTS arena, the
+   checkpoint restores with a matching hash. Prints the seconds by part.
+19. The supervisor with ``run_chess_r5.sh``'s flags word for word, then
+   ``--run.results_dir=<a copy of phase 18's run> --run.run_id=smoke
+   --loop.generations=1 --self_play.max_plies=8``: it resumes at step
+   2816, plays a generation and exits 0.
+20. The kernels' JSON line, the card's line, and the result line.
 
 ``python3 chip_smoke.py --launch-shapes`` runs a tuning aid in place of the
 phases: K1 built with 1, 2, 4 and 8 games (warps) per block, each checked
@@ -121,6 +145,9 @@ RING_CAPACITY = 400_000
 TRAIN_BATCH = 1024
 AUX_BATCH = 256
 ARENA_GAMES = 256
+# Phase 12 scores the first arena as the loop does (200 positions) and, to
+# save time, only this many positions of the second.
+SECOND_ARENA_POSITIONS = 20
 # Phase 10, card vs CPU, per leaf: the L2 distance of the gradients over the
 # larger of the leaf's gradient norm and the floor. Seven batches read
 # 3.8e-3 to 1.1e-2 in the worst leaf (H100 80GB HBM3); the CPU's own step
@@ -488,16 +515,19 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaGraphLaunch", "cuLaunchKernel",
                      "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
-def profiled(fn):
+def profiled(fn, host: bool = True):
     """One call of ``fn`` under torch.profiler, the device drained after it:
     (wall ms, device ms by kernel name, device events by kernel name, host
-    launch calls by name)."""
+    launch calls by name). ``host=False`` traces the device only (no launch
+    calls), which keeps a long trace quick to read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -554,11 +584,11 @@ def timed(fn, repeats: int = 1):
     return out, (time.perf_counter() - t0) * 1e3 / repeats
 
 
-def profile_step(fn, label: str, top: int = 10) -> float:
+def profile_step(fn, label: str, top: int = 10, host: bool = True) -> float:
     """One call of ``fn`` under torch.profiler: wall, device busy time, the
     idle share and the device kernels that took the most time. Returns the
     busy time in ms (nan where the profiler saw no device event)."""
-    wall_ms, by_name, count_by_name, _ = profiled(fn)
+    wall_ms, by_name, count_by_name, _ = profiled(fn, host)
     if not by_name:
         log(f"profiled {label}: device time not measured (no device events)")
         return math.nan
@@ -937,12 +967,14 @@ def learner_phase(device):
 
     def counted(log):
         # The loop's call, timed, with the number of positions it scores
-        # (candidate moves from ply 8 on, at most 200).
+        # (candidate moves from ply 8 on, at most 200; for time, at most
+        # SECOND_ARENA_POSITIONS after the first arena).
         active, movers = log.active.cpu().numpy(), log.movers.cpu().numpy()
         candidates = int((active[8:] & (movers[8:] == 0)).sum())
+        limit = 200 if not scored else SECOND_ARENA_POSITIONS
         t0 = time.perf_counter()
-        score = score_arena_log(log)
-        scored.append((min(candidates, 200), time.perf_counter() - t0,
+        score = score_arena_log(log, max_positions=limit)
+        scored.append((min(candidates, limit), time.perf_counter() - t0,
                        score))
         return score
 
@@ -1061,14 +1093,44 @@ def learner_phase(device):
     return launches, run_copy
 
 
-def run_c4_r5_flags() -> list:
-    """The flags of run_c4_r5.sh's command, word for word as bash passes
-    them: the supervisor's, then the loop's."""
-    with open(RUN_C4_R5) as fp:
+def script_flags(path: str) -> list:
+    """The flags of a run script's command, word for word as bash passes
+    them when the script is run without arguments: the supervisor's, then
+    the loop's, with the script's ``NAME=${1:-default}`` variables put in."""
+    with open(path) as fp:
         script = fp.read().replace("\\\n", " ")
+    defaults = dict(re.findall(r"^(\w+)=\$\{1:-([^}]*)\}$", script, re.M))
     command = next(line for line in script.splitlines()
                    if line.startswith("exec "))
-    return [word for word in shlex.split(command) if word.startswith("--")]
+    words = [word for word in shlex.split(command) if word.startswith("--")]
+    for name, value in defaults.items():
+        words = [word.replace(f"${name}", value) for word in words]
+    check(not any("$" in word for word in words), f"{path}: {words}")
+    return words
+
+
+def run_supervisor(args: list):
+    """``python -m custom_alphazero_tpu_torch.runtime.supervisor *args`` from
+    the repo root, in a process group of its own (a timeout ends the loop
+    under the supervisor too): (output, wall seconds); raises unless it
+    exits 0."""
+    cmd = [sys.executable, "-m", "custom_alphazero_tpu_torch.runtime.supervisor",
+           *args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out = proc.communicate(timeout=SUPERVISOR_TIMEOUT_S)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    wall = time.perf_counter() - t0
+    for line in out.splitlines()[-12:]:
+        log(f"  supervisor | {line}")
+    check(proc.returncode == 0, f"supervisor exited {proc.returncode}")
+    return out, wall
 
 
 def supervisor_phase(run_copy: str) -> None:
@@ -1077,31 +1139,15 @@ def supervisor_phase(run_copy: str) -> None:
     from custom_alphazero_tpu_torch import paths
     from custom_alphazero_tpu_torch.io.checkpoint import load_checkpoint
 
-    flags = run_c4_r5_flags()
+    flags = script_flags(RUN_C4_R5)
     check(flags[0] == "--supervise.liveness_timeout_minutes=10"
           and "--arena.evaluate_with_solver=true" in flags
           and "--loop.visualize_frequency=100" in flags,
           f"run_c4_r5.sh flags: {flags}")
-    cmd = [sys.executable, "-m", "custom_alphazero_tpu_torch.runtime.supervisor",
-           *flags, f"--run.results_dir={run_copy}", "--run.run_id=smoke",
-           "--loop.generations=1"]
     try:
-        t0 = time.perf_counter()
-        # A process group of its own, so that a timeout ends the loop under
-        # the supervisor too.
-        proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True,
-                                start_new_session=True)
-        try:
-            out = proc.communicate(timeout=SUPERVISOR_TIMEOUT_S)[0]
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.communicate()
-            raise
-        wall = time.perf_counter() - t0
-        for line in out.splitlines()[-12:]:
-            log(f"  supervisor | {line}")
-        check(proc.returncode == 0, f"supervisor exited {proc.returncode}")
+        out, wall = run_supervisor(
+            flags + [f"--run.results_dir={run_copy}", "--run.run_id=smoke",
+                     "--loop.generations=1"])
         check("Resumed training state at step 11640" in out and "[gen 0]" in out,
               "supervisor: the loop did not resume at step 11640 and play")
         tree, meta = load_checkpoint(paths.training_path(
@@ -1216,6 +1262,356 @@ def strength_phase(device) -> None:
             f"root visits {visits.tolist()}; {wall:.2f} s")
     finally:
         shutil.rmtree(results, ignore_errors=True)
+
+
+# ---- chess-r5: engine, Gumbel search, self-play, learner, supervisor -------
+
+CHESS_DIR = os.path.join(REPO, "artifacts", "chess-r5")
+CHESS_CONFIG = os.path.join(CHESS_DIR, "config.json")
+CHESS_CHECKPOINT = os.path.join(CHESS_DIR, "iteration_2400")
+CHESS_TRAINING_STATE = os.path.join(CHESS_DIR, "final_training_state")
+CHESS_LABELS = os.path.join(REPO, "data", "chess_tactic_labels.npz")
+RUN_CHESS_R5 = os.path.join(REPO, "run_chess_r5.sh")
+CHESS_BATCH = 128      # run_chess_r5.sh's games per generation
+CHESS_PLIES = 8        # self-play and learner plies (committed: 256)
+CHESS_GAME_PLIES = 40  # phase 15's random games
+CHESS_LEARNER_STEPS = 16
+# Phase 16: a game may differ between the card and the CPU only where one of
+# its search's decisions had its two best scores this close (relative).
+GAP_LIMIT = 1e-5
+# Published perft counts (start position, Kiwipete and positions 3-5, one
+# of them mirrored): every depth of each row, then the two deep counts.
+KNOWN_PERFTS = [
+    ("start", [20, 400, 8902]),
+    ("r3k2r/p1ppqpb1/bn2pnp1/3PN3/1p2P3/2N2Q1p/PPPBBPPP/R3K2R w KQkq - 0 1",
+     [48, 2039]),
+    ("8/2p5/3p4/KP5r/1R3p1k/8/4P1P1/8 w - - 0 1", [14, 191, 2812]),
+    ("r3k2r/Pppp1ppp/1b3nbN/nP6/BBP1P3/q4N2/Pp1P2PP/R2Q1RK1 w kq - 0 1",
+     [6, 264, 9467]),
+    ("rnbq1k1r/pp1Pbppp/2p5/8/2B5/8/PPP1NnPP/RNBQK2R w KQ - 1 8",
+     [44, 1486]),
+    ("r2q1rk1/pP1p2pp/Q4n2/bbp1p3/Np6/1B3NBn/pPPP1PPP/R3K2R b KQ - 0 1",
+     [6, 264, 9467]),
+]
+DEEP_PERFTS = [("start", 4, 197_281), (KNOWN_PERFTS[1][0], 3, 97_862)]
+
+
+def chess_config(overrides=None):
+    """The committed chess-r5 configuration, with ``overrides``."""
+    from custom_alphazero_tpu_torch.config import apply_overrides, from_json
+
+    with open(CHESS_CONFIG) as fp:
+        return apply_overrides(from_json(fp.read()), overrides or {})
+
+
+def chess_net(cfg, dtype: str, device):
+    """The committed chess-r5 net (iteration 2400) on ``device``."""
+    import dataclasses
+
+    from custom_alphazero_tpu_torch.io.checkpoint import load_jax_checkpoint
+    from custom_alphazero_tpu_torch.models.convert import from_jax_variables
+
+    params, batch_stats, meta = load_jax_checkpoint(CHESS_CHECKPOINT)
+    model = dataclasses.replace(cfg.model, compute_dtype=dtype)
+    return from_jax_variables(params, batch_stats, 1968, model, 118, (8, 8),
+                              device=device), meta
+
+
+def device_and_host_ms(fn, repeats: int = 1):
+    """(wall ms per call with the device drained, device ms, host enqueue
+    ms) of ``fn``; the device time is taken with the launches queued behind
+    a GPU sleep, as ``time_forward`` does."""
+    _, wall_ms = timed(fn, 5)
+    device_ms, host_ms = time_forward(lambda _: fn(), None, repeats)
+    return wall_ms, device_ms, host_ms
+
+
+def same_states(a, b) -> list:
+    """The names of the ChessState fields that differ between a and b."""
+    import dataclasses
+
+    return [f.name for f in dataclasses.fields(a)
+            if not torch.equal(getattr(a, f.name).cpu(),
+                               getattr(b, f.name).cpu())]
+
+
+def chess_engine_phase(device):
+    """Phase 15: perft on the card against the published counts, 128 random
+    games played on the card and on the CPU with equal states after every
+    ply, and the step times at B=128. Returns 128 positions on the card
+    (each game after a random number of its plies) for phase 16."""
+    from custom_alphazero_tpu_torch.envs.chess.engine import Chess
+    from custom_alphazero_tpu_torch.tools.perft import perft
+
+    env = Chess()
+    t0 = time.perf_counter()
+    for fen, counts in KNOWN_PERFTS:
+        root = (env.init(1, device) if fen == "start"
+                else env.from_fen(fen, device))
+        got = [perft(env, root, d) for d in range(1, len(counts) + 1)]
+        check(got == counts, f"perft {fen}: {got}, published {counts}")
+    log(f"chess perft on the card: {len(KNOWN_PERFTS)} positions, every "
+        f"published depth equal, {time.perf_counter() - t0:.1f} s")
+    for fen, depth, want in DEEP_PERFTS:
+        root = (env.init(1, device) if fen == "start"
+                else env.from_fen(fen, device))
+        got, ms = timed(lambda: perft(env, root, depth))
+        check(got == want, f"perft {fen} depth {depth}: {got} != {want}")
+        log(f"  perft {fen[:24]} depth {depth} = {got} in {ms:.0f} ms "
+            f"({got / ms * 1e3:.0f} leaves/s)")
+
+    gen = torch.Generator().manual_seed(6)
+    card, host = env.init(CHESS_BATCH, device), env.init(CHESS_BATCH, "cpu")
+    target = torch.randint(0, CHESS_GAME_PLIES + 1, (CHESS_BATCH,),
+                           generator=gen)
+    positions = card
+    t0 = time.perf_counter()
+    for ply in range(CHESS_GAME_PLIES):
+        legal = env.legal_mask(host)
+        check(torch.equal(env.legal_mask(card).cpu(), legal),
+              f"ply {ply}: legal masks differ")
+        actions = (torch.rand(legal.shape, generator=gen) + legal).argmax(1)
+        host, host_reward = env.step(host, actions)
+        card, card_reward = env.step(card, actions.to(device))
+        differ = same_states(card, host)
+        check(not differ and torch.equal(card_reward.cpu(), host_reward),
+              f"ply {ply}: card and CPU states differ in {differ}")
+        check(torch.equal(env.observe(card).cpu(), env.observe(host)),
+              f"ply {ply}: observations differ")
+        positions = card.where((target == ply + 1).to(device), positions)
+    log(f"chess engine: {CHESS_BATCH} random games x {CHESS_GAME_PLIES} "
+        f"plies, every state field (hash ring included), reward and "
+        f"observation equal card vs CPU after every ply "
+        f"({int(host.terminal.sum())} games ended; "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    actions = env.legal_mask(card).to(torch.uint8).argmax(1)
+    for name, fn in (("step", lambda: env.step(card, actions)),
+                     ("step_lite", lambda: env.step_lite(card, actions)),
+                     ("observe", lambda: env.observe(card))):
+        wall_ms, device_ms, host_ms = device_and_host_ms(fn)
+        log(f"  chess {name} at B={CHESS_BATCH}: {wall_ms:.3f} ms wall, "
+            f"device {device_ms:.3f} ms, host enqueue {host_ms:.3f} ms")
+    return positions
+
+
+def chess_gumbel_phase(positions, device) -> None:
+    """Phase 16: one Gumbel search (the chess-r5 settings) from 128 chess
+    positions on the card and on the CPU, with the committed net in float32
+    (TF32 off) and the same Gumbel draws: actions and root visits equal in
+    every game but those with a decision closer than GAP_LIMIT."""
+    from custom_alphazero_tpu_torch.envs.chess.engine import Chess
+    from custom_alphazero_tpu_torch.ops.rng import gumbel
+    from custom_alphazero_tpu_torch.runtime.evaluate import make_evaluate_fn
+    from custom_alphazero_tpu_torch.search.gumbel import GumbelMCTS
+
+    cfg = chess_config()
+    env = Chess(cfg.chess)
+    sims = cfg.mcts.simulations
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    draws = gumbel(torch.Generator().manual_seed(7),
+                   (CHESS_BATCH, env.num_actions), "cpu")
+    out = {}
+    for where in (device, torch.device("cpu")):
+        net, _ = chess_net(cfg, "float32", where)
+        search = GumbelMCTS(env, cfg.mcts)
+        search.track_gaps = True
+        (tree, action, pi), ms = timed(lambda: search.search_select(
+            positions.to(where), make_evaluate_fn(net), None, sims,
+            gumbels=draws.to(where)))
+        out[where.type] = (action.cpu(), search.root_child_visits(tree).cpu(),
+                           pi.cpu(), search.decision_gap.cpu(), ms)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    (a_card, v_card, pi_card, gap_card, ms_card), (
+        a_cpu, v_cpu, pi_cpu, gap_cpu, ms_cpu) = out["cuda"], out["cpu"]
+    gap = torch.minimum(gap_card, gap_cpu)
+    differ = (a_card != a_cpu) | (v_card != v_cpu).any(-1)
+    for g in differ.nonzero()[:, 0].tolist():
+        log(f"  game {g}: card action {int(a_card[g])}, CPU {int(a_cpu[g])}; "
+            f"closest decision {float(gap[g]):.3e} relative")
+        check(float(gap[g]) < GAP_LIMIT,
+              f"Gumbel search differs card vs CPU in game {g} with its "
+              f"decisions {float(gap[g]):.3e} apart")
+    pi_err = (pi_card - pi_cpu).abs().max().item()
+    log(f"Gumbel search card vs CPU ({CHESS_BATCH} chess positions, {sims} "
+        f"sims, m={cfg.mcts.gumbel_max_considered}, K=100, float32 net): "
+        f"{CHESS_BATCH - int(differ.sum())} of {CHESS_BATCH} games equal in "
+        f"action and root visits, {int(differ.sum())} differ (each with a "
+        f"decision under {GAP_LIMIT:g}); closest decision "
+        f"{float(gap.min()):.3e}; improved policy max-abs {pi_err:.2e}; "
+        f"card {ms_card / 1e3:.2f} s, CPU {ms_cpu / 1e3:.2f} s")
+    check(int(v_card.sum()) == CHESS_BATCH * (sims - 1)
+          - (sims - 1) * int(positions.terminal.sum()),
+          "root visits do not add up to the simulations")
+
+
+class _Stopwatch:
+    """Seconds by part of the Gumbel search, each call timed with the
+    device drained before and after it."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def wrap(self, name, fn):
+        def timed_call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[name] = (self.seconds.get(name, 0.0)
+                                  + time.perf_counter() - t0)
+            return out
+
+        return timed_call
+
+
+def chess_selfplay_phase(device) -> None:
+    """Phase 17: chess-r5 Gumbel self-play in bf16 (B=128, 100 simulations,
+    continuous) for CHESS_PLIES plies: simulations/s, the samples' checks,
+    one search split by part, one profiled ply."""
+    from custom_alphazero_tpu_torch.envs.chess.engine import Chess
+    from custom_alphazero_tpu_torch.runtime.evaluate import make_evaluate_fn
+    from custom_alphazero_tpu_torch.runtime.selfplay import make_selfplay_fn
+    from custom_alphazero_tpu_torch.search.gumbel import GumbelMCTS
+
+    cfg = chess_config()
+    env = Chess(cfg.chess)
+    net, meta = chess_net(cfg, "bfloat16", device)
+    evaluate = make_evaluate_fn(net)
+    sims = cfg.mcts.simulations
+    gen = torch.Generator(device=device).manual_seed(0)
+    generate = make_selfplay_fn(env, cfg.mcts, cfg.self_play, CHESS_PLIES,
+                                device=device)
+    (batch, stats), ms = timed(lambda: generate(evaluate, gen, CHESS_BATCH))
+    rows = CHESS_PLIES * CHESS_BATCH
+    check(batch.obs.shape == (rows, 8, 8, 118)
+          and batch.policy.shape == (rows, 1968), "chess samples' shapes")
+    check(bool(torch.isfinite(batch.policy).all()), "pi not finite")
+    pi_err = (batch.policy.sum(-1) - 1.0).abs().max().item()
+    check(pi_err < 1e-4, f"pi rows do not sum to 1: {pi_err}")
+    dense = (batch.policy > 0).sum(-1).float().mean().item()
+    log(f"chess Gumbel self-play (step {meta['steps']} net, bf16): "
+        f"{CHESS_PLIES} plies x {CHESS_BATCH} games x {sims} sims in "
+        f"{ms / 1e3:.2f} s = {rows * sims / (ms / 1e3):.0f} sims/s, "
+        f"{ms / (CHESS_PLIES * sims):.1f} ms per wave; {int(stats.games)} "
+        f"games ended; pi row-sum err {pi_err:.1e}, {dense:.1f} nonzero "
+        f"entries per target row")
+
+    # One search from the start position, split by part.
+    search = GumbelMCTS(env, cfg.mcts)
+    watch = _Stopwatch()
+    for name in ("_descend", "_backup"):
+        setattr(search, name, watch.wrap(name[1:], getattr(search, name)))
+    for name in ("step", "observe", "legal_mask"):
+        setattr(env, name, watch.wrap("env", getattr(env, name)))
+    roots = env.init(CHESS_BATCH, device)
+    _, total_ms = timed(lambda: search.search_select(
+        roots, watch.wrap("net", evaluate), gen, sims))
+    for name in ("step", "observe", "legal_mask"):
+        delattr(env, name)
+    parts = dict(watch.seconds)
+    parts["precompute and writes"] = total_ms / 1e3 - sum(parts.values())
+    log(f"  one search, B={CHESS_BATCH}, {sims} waves: {total_ms:.0f} ms "
+        f"({total_ms / sims:.1f} ms per wave; each part timed with the "
+        f"device drained): " + ", ".join(
+            f"{name} {1e3 * s / sims:.2f} ms/wave" for name, s in
+            sorted(parts.items(), key=lambda kv: -kv[1])))
+    profile_step(lambda: make_selfplay_fn(
+        env, cfg.mcts, cfg.self_play, 1, device=device)(
+            evaluate, gen, CHESS_BATCH),
+        f"chess self-play ply ({sims} waves, B={CHESS_BATCH}, device "
+        f"trace only)", top=8, host=False)
+
+
+def chess_learner_phase(device) -> str:
+    """Phase 18: ``run(cfg, generations=1)`` on the chess-r5 config from its
+    committed training state, lowered only where time needs it; returns a
+    copy of the run's results directory for phase 19."""
+    from custom_alphazero_tpu_torch import paths
+    from custom_alphazero_tpu_torch.io.checkpoint import load_checkpoint
+    from custom_alphazero_tpu_torch.runtime.loop import run
+
+    results = tempfile.mkdtemp(prefix="chip_smoke_chess_")
+    # Games of CHESS_PLIES plies never end, so continuous generation would
+    # keep no sample; plain generation keeps every ply, as truncated draws.
+    cfg = chess_config({
+        "self_play.max_plies": str(CHESS_PLIES),
+        "self_play.continuous": "false",
+        "replay.min_size": "512",
+        "loop.max_sample_reuse": "0",
+        "arena.evaluation_frequency": str(CHESS_LEARNER_STEPS),
+        "arena.checkpoint_frequency": str(CHESS_LEARNER_STEPS),
+        "loop.solver_labels_path": CHESS_LABELS,
+        "run.results_dir": results,
+        "run.run_id": "smoke",
+    })
+    check(cfg.model.batch_size == 512 and cfg.mcts.use_gumbel
+          and cfg.arena.evaluate_with_mcts, "chess-r5 config")
+    tee = Tee(sys.stdout)
+    try:
+        training_dir = paths.training_path(results, "chess", "smoke")
+        shutil.copytree(CHESS_TRAINING_STATE, training_dir)
+        _, meta0 = load_checkpoint(training_dir)
+        sys.stdout = tee
+        summary, ms = timed(lambda: run(cfg, generations=1))
+        sys.stdout = tee.stream
+        tree, meta = load_checkpoint(training_dir)  # checks the hash
+        step = meta0["steps"] + CHESS_LEARNER_STEPS
+        evaluations = sorted(os.listdir(
+            paths.evaluation_path(results, "chess", "smoke")))
+        run_copy = tempfile.mkdtemp(prefix="chip_smoke_chess_run_")
+        shutil.copytree(paths.run_path(results, "chess", "smoke"),
+                        paths.run_path(run_copy, "chess", "smoke"))
+    finally:
+        sys.stdout = tee.stream
+        shutil.rmtree(results, ignore_errors=True)
+    out = tee.text()
+    check(summary["iterations"] == step == meta["steps"] == int(tree["steps"]),
+          f"chess learner: {summary['iterations']} iterations, checkpoint at "
+          f"{meta['steps']}, started from {meta0['steps']}")
+    arena = re.search(rf"\[iter {step}\] arena score=[0-9.]+ "
+                      r"\(\+(\d+)/-(\d+)/=(\d+)\)", out)
+    check(arena is not None and sum(map(int, arena.groups())) == cfg.arena.games,
+          f"chess learner: no {cfg.arena.games}-game arena at step {step}")
+    check(evaluations == [f"iteration_{step}"],
+          f"chess learner: evaluation checkpoints {evaluations}")
+    timing = summary["timings"][0]
+    check(timing["train_iterations"] == CHESS_LEARNER_STEPS,
+          f"chess learner trained {timing['train_iterations']} steps")
+    log(f"chess learner: run(generations=1) in {ms / 1e3:.1f} s, steps "
+        f"{meta0['steps']} -> {meta['steps']}, checkpoint restored with a "
+        f"matching hash; arena {arena.group(0)}; {timing['samples']} "
+        f"samples, {timing['sims_per_second']:.0f} sims/s; seconds: generate "
+        f"{timing['generate_s']:.2f}, replay {timing['replay_s']:.3f}, train "
+        f"{timing['train_s']:.3f} ({CHESS_LEARNER_STEPS} steps), arena "
+        f"{timing['arena_s']:.2f}, checkpoint {timing['checkpoint_s']:.3f}")
+    return run_copy
+
+
+def chess_supervisor_phase(run_copy: str) -> None:
+    """Phase 19: the supervisor with run_chess_r5.sh's flags word for word,
+    resuming phase 18's run for one generation of CHESS_PLIES plies."""
+    flags = script_flags(RUN_CHESS_R5)
+    check(flags[0] == "--supervise.liveness_timeout_minutes=10"
+          and "--game=chess" in flags and "--mcts.use_gumbel=true" in flags,
+          f"run_chess_r5.sh flags: {flags}")
+    extra = [f"--run.results_dir={run_copy}", "--run.run_id=smoke",
+             "--loop.generations=1", f"--self_play.max_plies={CHESS_PLIES}"]
+    try:
+        out, wall = run_supervisor(flags + extra)
+    finally:
+        shutil.rmtree(run_copy, ignore_errors=True)
+    step = 2800 + CHESS_LEARNER_STEPS
+    check(f"Resumed training state at step {step}" in out
+          and f"Restored best model from iteration {step}" in out
+          and "[gen 0]" in out,
+          f"chess supervisor: the loop did not resume at step {step} and play")
+    log(f"chess supervisor: `python -m custom_alphazero_tpu_torch.runtime."
+        f"supervisor` with run_chess_r5.sh's {len(flags)} flags + "
+        f"{len(extra)} overrides exited 0 in {wall:.1f} s, resumed at step "
+        f"{step} and played a generation")
 
 
 def launch_shapes(device) -> None:
@@ -1426,7 +1822,22 @@ def main() -> int:
     # ---- 14. the strength tool ----------------------------------------------
     strength_phase(device)
 
-    # ---- 15. result lines ---------------------------------------------------
+    # ---- 15. chess engine on the card ---------------------------------------
+    positions = chess_engine_phase(device)
+
+    # ---- 16. Gumbel search, card vs CPU -------------------------------------
+    chess_gumbel_phase(positions, device)
+
+    # ---- 17. chess-r5 Gumbel self-play --------------------------------------
+    chess_selfplay_phase(device)
+
+    # ---- 18. the entry point on chess-r5 ------------------------------------
+    chess_run_copy = chess_learner_phase(device)
+
+    # ---- 19. the supervisor with run_chess_r5.sh's flags --------------------
+    chess_supervisor_phase(chess_run_copy)
+
+    # ---- 20. result lines ---------------------------------------------------
     k2_err, k2_ms, k2_plain_ms, k2_bound_ms, k2_carry_bound_ms, k2_fit = k2
     check(k2_launches > 0 and k2_err == 0.0, "K2 did not run or disagreed")
     kernels = [{

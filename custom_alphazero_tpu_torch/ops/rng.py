@@ -59,3 +59,9 @@ def safe_gamma(generator: torch.Generator, alpha: float, shape,
         ub = _uniform(generator, shape, device)
         g = g * torch.exp(torch.log(ub) / alpha)
     return g
+
+
+def gumbel(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """float32 standard Gumbel draws -log(-log U), U in [tiny, 1), as
+    ``jax.random.gumbel`` draws them."""
+    return -torch.log(-torch.log(_uniform(generator, tuple(shape), device)))

@@ -50,6 +50,7 @@ from custom_alphazero_tpu_torch.config import (
     resolve_device,
     to_json,
 )
+from custom_alphazero_tpu_torch.envs.chess.engine import Chess
 from custom_alphazero_tpu_torch.envs.connect_n import ConnectN
 from custom_alphazero_tpu_torch.io.checkpoint import (
     checkpoint_exists,
@@ -109,10 +110,7 @@ def make_env(cfg: Config):
     if cfg.game == "connect_n":
         return ConnectN(cfg.connect_n)
     if cfg.game == "chess":
-        raise NotImplementedError(
-            "game='chess' is not ported yet (ROADMAP.md queue 1, "
-            "'Chess engine')"
-        )
+        return Chess(cfg.chess)
     raise ValueError(f"Unknown game {cfg.game!r}")
 
 
@@ -124,7 +122,6 @@ def _check_ported(cfg: Config) -> None:
          "Multi-GPU"),
         (cfg.mesh.model_parallelism > 1, "mesh.model_parallelism > 1",
          "Multi-GPU"),
-        (cfg.mcts.use_gumbel, "mcts.use_gumbel", "Gumbel search"),
         (cfg.mcts.reuse_tree, "mcts.reuse_tree", "Subtree reuse"),
     )
     for is_set, setting, item in not_ported:

@@ -5,7 +5,9 @@ modes. A Python loop steps a batch of games in lockstep: per ply one search
 (the fused v2 search, ops/fused_mcts_v2.py, or the general
 ``MCTS.search``), a move sampled per game, and the samples recorded under a
 liveness mask. Both searches give the same root visits, so the two paths
-give the same samples. Sample semantics are the JAX ones:
+give the same samples. With ``mcts.use_gumbel`` the search is
+``GumbelMCTS.search_select``: its action is played and its improved policy
+is the target, with no sampling. Sample semantics are the JAX ones:
 
 - pi = root child visits normalised; from ``fullmove >= greedy_from_move``
   the played distribution and the stored target are a one-hot argmax.
@@ -30,10 +32,11 @@ from custom_alphazero_tpu_torch.config import (
     SelfPlayConfig,
     resolve_device,
 )
-from custom_alphazero_tpu_torch.envs.connect_n import ConnectN
+from custom_alphazero_tpu_torch.envs.core import Env
 from custom_alphazero_tpu_torch.ops import fused_mcts_v2
 from custom_alphazero_tpu_torch.replay.codec import PackedObs
 from custom_alphazero_tpu_torch.runtime.evaluate import EvaluateFn
+from custom_alphazero_tpu_torch.search.gumbel import GumbelMCTS
 from custom_alphazero_tpu_torch.search.mcts import MCTS
 
 
@@ -63,16 +66,17 @@ GenerateFn = Callable[[EvaluateFn, torch.Generator, int],
                       Tuple[SelfPlayBatch, SelfPlayStats]]
 
 
-def make_selfplay_fn(env: ConnectN, mcts_cfg: MCTSConfig,
+def make_selfplay_fn(env: Env, mcts_cfg: MCTSConfig,
                      sp_cfg: SelfPlayConfig, max_plies: int,
                      device=None, fused: bool = None,
                      graph: bool = None, obs_codec=None) -> GenerateFn:
     """Build ``generate(evaluate_fn, generator, batch_size)``.
 
     fused: search with the fused v2 kernel; None (the default) does so
-    whenever ``fused_mcts_v2.supports`` the env and config, and otherwise
-    runs the general ``MCTS.search``. Subtree reuse and Gumbel search are
-    not ported and raise NotImplementedError.
+    whenever ``fused_mcts_v2.supports`` the env and config and Gumbel
+    search is off, and otherwise runs the general ``MCTS.search`` (or the
+    Gumbel search). Gumbel search is never fused (ValueError). Subtree
+    reuse is not ported and raises NotImplementedError.
     graph: the fused search's ``graph`` argument: None (the default)
     replays one captured CUDA graph per wave on the card; False launches
     every wave from the host, for an evaluator that cannot be captured.
@@ -84,16 +88,17 @@ def make_selfplay_fn(env: ConnectN, mcts_cfg: MCTSConfig,
             "mcts.reuse_tree is not ported yet (ROADMAP.md queue 1, "
             "'Subtree reuse')"
         )
-    if mcts_cfg.use_gumbel:
-        raise NotImplementedError(
-            "mcts.use_gumbel is not ported yet (ROADMAP.md queue 1, "
-            "'Gumbel search')"
-        )
+    gumbel = mcts_cfg.use_gumbel
     if fused is None:
-        fused = fused_mcts_v2.supports(env, mcts_cfg)
+        fused = not gumbel and fused_mcts_v2.supports(env, mcts_cfg)
+    if gumbel and fused:
+        raise ValueError("Gumbel search uses fresh general-search trees: "
+                         "it has no fused kernel")
     device = resolve_device(device)
     sims = mcts_cfg.simulations
-    if fused:
+    if gumbel:
+        gumbel_search = GumbelMCTS(env, mcts_cfg)
+    elif fused:
         fused_search = fused_mcts_v2.FusedConnectNSearchV2(env, mcts_cfg,
                                                            device)
 
@@ -120,17 +125,15 @@ def make_selfplay_fn(env: ConnectN, mcts_cfg: MCTSConfig,
             active = ~env.is_terminal(states)
             obs = env.observe(states)
             mv = states.fullmove
-            visits = search_visits(states, evaluate_fn, generator).float()
-            probs = visits / visits.sum(dim=-1, keepdim=True).clamp_min(1.0)
-            greedy = mv >= mcts_cfg.greedy_from_move
-            one_hot = torch.nn.functional.one_hot(
-                visits.argmax(dim=-1), num_actions
-            ).float()
-            pi = torch.where(greedy[:, None], one_hot, probs)
-            first = torch.zeros_like(pi)
-            first[:, 0] = 1.0
-            safe_pi = torch.where(pi.sum(dim=-1, keepdim=True) > 0, pi, first)
-            actions = torch.multinomial(safe_pi, 1, generator=generator)[:, 0]
+            if gumbel:
+                # Play the sequential-halving winner, train on the improved
+                # policy (the Gumbel draw is the exploration).
+                _, actions, pi = gumbel_search.search_select(
+                    states, evaluate_fn, generator, sims)
+            else:
+                actions, pi = _sample_move(
+                    search_visits(states, evaluate_fn, generator).float(),
+                    mv >= mcts_cfg.greedy_from_move, num_actions, generator)
 
             next_states, rewards = env.step(states, actions)
             done = active & env.is_terminal(next_states)
@@ -167,6 +170,19 @@ def make_selfplay_fn(env: ConnectN, mcts_cfg: MCTSConfig,
         return batch, stats
 
     return generate
+
+
+def _sample_move(visits, greedy, num_actions, generator):
+    """(actions, pi): pi = visits normalised, one-hot argmax on greedy rows;
+    the move is sampled from pi (a row with no visits plays action 0)."""
+    probs = visits / visits.sum(dim=-1, keepdim=True).clamp_min(1.0)
+    one_hot = torch.nn.functional.one_hot(visits.argmax(dim=-1),
+                                          num_actions).float()
+    pi = torch.where(greedy[:, None], one_hot, probs)
+    first = torch.zeros_like(pi)
+    first[:, 0] = 1.0
+    safe_pi = torch.where(pi.sum(dim=-1, keepdim=True) > 0, pi, first)
+    return torch.multinomial(safe_pi, 1, generator=generator)[:, 0], pi
 
 
 def _continuous_targets(sp_cfg, active, reward, done, mv):

@@ -26,9 +26,11 @@ are a gather of its child's. Each edge has one child at most, so the values
 are the einsums' exactly. In the ``fast_edge_stats`` layout that table is
 JAX's ``child_index`` field.
 
-Row sums over the action axis are taken left to right (``rowsum``), the
-order XLA's CPU reduction uses for these short rows, so that non-dyadic
-sums (the Dirichlet normaliser) round as in JAX.
+Row sums over a short action axis are taken left to right (``rowsum``),
+the order XLA's CPU reduction uses for these rows, so that non-dyadic sums
+(the Dirichlet normaliser) round as in JAX. Chess rows (A = 1968) are
+summed in torch's order: their sums, and the priors divided by them, may
+differ from JAX's in the last bit.
 """
 
 from __future__ import annotations
@@ -53,10 +55,17 @@ NO_PARENT = -1
 UNVISITED = -1
 
 _NEG_INF = torch.finfo(torch.float32).min
+# Rows up to this width (every Connect-N board) are summed one column at a
+# time (``rowsum``).
+SEQUENTIAL_SUM_MAX = 64
 
 
 def rowsum(x: torch.Tensor) -> torch.Tensor:
-    """(..., A) -> (..., 1) sum over the last axis, left to right."""
+    """(..., A) -> (..., 1) sum over the last axis: left to right for short
+    rows, as XLA's CPU reduction sums them; wider rows (chess, A = 1968),
+    which XLA sums in an order of its own, in torch's order."""
+    if x.shape[-1] > SEQUENTIAL_SUM_MAX:
+        return x.sum(-1, keepdim=True)
     total = x[..., 0:1]
     for a in range(1, x.shape[-1]):
         total = total + x[..., a:a + 1]

@@ -379,3 +379,46 @@ def test_oracle_and_tree_render_on_card():
     for game in range(3):
         assert tree_to_dot(tree, env, game) == tree_to_dot(cpu_tree, env,
                                                            game)
+
+
+@pytest.mark.cuda
+def test_chess_engine_and_gumbel_search_on_card():
+    """The chess engine on the card equals the CPU's ply by ply, field by
+    field; a Gumbel search on the card from the same positions and draws
+    equals the CPU's, with a dyadic evaluator (its priors and values are
+    exact on both; only log and exp may round apart, far from any tie)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from custom_alphazero_tpu_torch.envs.chess.engine import Chess
+    from custom_alphazero_tpu_torch.ops.rng import gumbel
+    from custom_alphazero_tpu_torch.search.gumbel import GumbelMCTS
+
+    device = torch.device("cuda")
+    env = Chess()
+    card, host = env.init(8, device), env.init(8, "cpu")
+    gen = torch.Generator().manual_seed(0)
+    for ply in range(24):
+        legal = env.legal_mask(host)
+        actions = (torch.rand(legal.shape, generator=gen) + legal).argmax(1)
+        card, _ = env.step(card, actions.to(device))
+        host, _ = env.step(host, actions)
+        assert not chip_smoke.same_states(card, host), ply
+
+    def dyadic(obs):
+        pieces = (obs[..., 6] == 0).sum(dim=(1, 2)).float()
+        a = torch.arange(env.num_actions, dtype=torch.float32,
+                         device=obs.device)[None, :]
+        return ((1.0 + torch.remainder(pieces[:, None] + a, 4.0)) / 4096.0,
+                (pieces - 16.0) / 64.0)
+
+    draws = gumbel(torch.Generator().manual_seed(1), (8, env.num_actions),
+                   "cpu")
+    search = GumbelMCTS(env, MCTSConfig(simulations=24,
+                                        gumbel_max_considered=8))
+    outs = []
+    for states in (card, host):
+        tree, action, _ = search.search_select(
+            states, dyadic, None, 24, gumbels=draws.to(states.board.device))
+        outs.append((action.cpu(), search.root_child_visits(tree).cpu()))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])

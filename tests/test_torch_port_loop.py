@@ -326,7 +326,15 @@ def test_loop_with_aux_targets(tmp_path, policy_weight):
     ({"mcts.reuse_tree": "true"}, "Subtree reuse"),
 ])
 def test_unported_settings_raise_at_construction(tmp_path, overrides, item):
+    """Multi-GPU and subtree reuse raise before anything starts. Chess and
+    Gumbel search are ported: the Learner builds them."""
     cfg = _tiny_cfg(tmp_path, "np", 1, **overrides)
+    if item in ("Chess engine", "Gumbel search"):
+        learner = Learner(cfg, device="cpu")
+        assert learner.env.num_actions == (1968 if item == "Chess engine"
+                                           else 7)
+        assert learner.cfg.mcts.use_gumbel == (item == "Gumbel search")
+        return
     with pytest.raises(NotImplementedError, match=item) as raised:
         Learner(cfg, device="cpu")
     assert "ROADMAP.md" in str(raised.value)

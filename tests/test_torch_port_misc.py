@@ -101,7 +101,10 @@ def test_port_imports_no_jax():
                     "io/metrics.py", "runtime/watchdog.py", "paths.py",
                     "io/checkpoint.py", "models/convert.py",
                     "solver/__init__.py", "tools/strength.py",
-                    "tools/visualize.py", "runtime/supervisor.py"}
+                    "tools/visualize.py", "runtime/supervisor.py",
+                    "envs/chess/tables.py", "envs/chess/engine.py",
+                    "envs/chess/__init__.py", "tools/perft.py",
+                    "search/gumbel.py"}
     assert learner_side <= {path.relative_to(package).as_posix()
                             for path in files[:-1]}
     for path in files:
@@ -135,6 +138,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         env.init(2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         from_jax_variables({}, {}, 7, ModelConfig(depth=1, filters=4))
+    from custom_alphazero_tpu_torch.envs.chess.engine import Chess
+    from custom_alphazero_tpu_torch.tools import perft
+
+    chess = Chess()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        chess.init(2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        chess.from_fen("4k3/8/8/8/8/8/8/4K3 w - - 0 1")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        perft.main(["start", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_selfplay_fn(chess, MCTSConfig(use_gumbel=True),
+                         SelfPlayConfig(), 4)
 
 
 def test_kernel_digest_covers_headers(tmp_path, monkeypatch):

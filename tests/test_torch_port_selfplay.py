@@ -116,10 +116,11 @@ def test_selfplay_samples_noise_on():
     (dict(max_nodes=64), "General search path"),
 ])
 def test_unported_modes_raise(override, item):
-    """Subtree reuse and Gumbel search are not ported and raise, naming
-    their ROADMAP item. The general search path is ported: a config that
-    the fused search rejects (max_nodes > 0) runs it and matches JAX's
-    general-path self-play."""
+    """Subtree reuse is not ported and raises, naming its ROADMAP item. The
+    general search path is ported: a config that the fused search rejects
+    (max_nodes > 0) runs it and matches JAX's general-path self-play. Gumbel
+    search is ported (tests/test_torch_port_gumbel.py holds it to JAX): it
+    builds, and refuses the fused kernel."""
     if item == "General search path":
         _assert_matches_jax(dict(simulations=8, greedy_from_move=0,
                                  **override),
@@ -127,6 +128,13 @@ def test_unported_modes_raise(override, item):
                             fused=None, batch=6, max_plies=14)
         return
     env = ConnectN(ConnectNConfig())
+    if item == "Gumbel search":
+        make_selfplay_fn(env, MCTSConfig(**override), SelfPlayConfig(), 4,
+                         device="cpu")
+        with pytest.raises(ValueError, match="no fused kernel"):
+            make_selfplay_fn(env, MCTSConfig(**override), SelfPlayConfig(),
+                             4, device="cpu", fused=True)
+        return
     with pytest.raises(NotImplementedError, match=item):
         make_selfplay_fn(env, MCTSConfig(**override), SelfPlayConfig(), 4,
                          device="cpu")
