@@ -67,8 +67,8 @@ Phases (any failed check raises and exits non-zero):
    steps, a tree render every generation; solver scoring on) in a
    temporary directory seeded with the committed training state: both
    generations train, both arenas run and are solver-scored (the line, the
-   metric, positions and seconds; the second arena on 20 positions, not
-   200, for time), every render's root edges hold the
+   metric, positions and seconds; for time on 40 and 20 positions, not
+   200), every render's root edges hold the
    search's 249 visits, the ``updated_mcts`` renders follow a promotion in
    the first arena, the checkpoint restores with a matching hash. Prints
    each generation's seconds by phase, K1's launches and the graph captures
@@ -82,9 +82,10 @@ Phases (any failed check raises and exits non-zero):
 14. The strength tool with the committed net: ``labeled_policy_accuracy``
    on the 2,000 positions of data/eval_labels.npz in float32 on the card
    (TF32 off) and on the CPU (at most 2 argmax moves may differ), and in
-   bf16 on the card; ``evaluate_strength`` at 250 simulations against the
-   perfect opponent, 2 games from 12 random plies; the solver oracle as the
-   general search's evaluator on the card keeps a won position's win.
+   bf16 on the card; ``evaluate_strength`` (its default route, the fused
+   search) at 250 simulations against the perfect opponent, 2 games from
+   12 random plies; the solver oracle as the general search's evaluator on
+   the card keeps a won position's win.
 15. Chess engine: perft on the card equal to the published counts (every
    depth of six positions, start position depth 4, Kiwipete depth 3); 128
    random games of 40 plies played on the card and on the CPU with every
@@ -99,16 +100,41 @@ Phases (any failed check raises and exits non-zero):
    for 8 plies: simulations/s and the samples' checks, one search split by
    part (precompute, descent, env, net, backup), one profiled ply.
 18. The entry point on chess: ``run(cfg, generations=1)`` on the committed
-   chess-r5 config from its training state (step 2800), with 8-ply plain
-   generation (8-ply games never end, so continuous generation keeps no
+   chess-r5 config from its training state (step 2800), with 4-ply plain
+   generation (4-ply games never end, so continuous generation keeps no
    sample), ``replay.min_size=512``, no sample-reuse clamp, arena and
-   checkpoint every 16 steps: 16 steps trained, a 64-game MCTS arena, the
-   checkpoint restores with a matching hash. Prints the seconds by part.
+   checkpoint every 16 steps: 16 steps trained, a 64-game MCTS arena of 4
+   plies, the checkpoint restores with a matching hash. Prints the seconds
+   by part.
 19. The supervisor with ``run_chess_r5.sh``'s flags word for word, then
    ``--run.results_dir=<a copy of phase 18's run> --run.run_id=smoke
-   --loop.generations=1 --self_play.max_plies=8``: it resumes at step
+   --loop.generations=1 --self_play.max_plies=4``: it resumes at step
    2816, plays a generation and exits 0.
-20. The kernels' JSON line, the card's line, and the result line.
+20. The Connect-4 evaluation battery (run_c4_r4_evals.sh's tools) on the
+   committed c4-r5 net, each through its ``main``: ``final_eval`` with the
+   2,000 labelled positions, 2 games per opponent at 250 simulations, seed
+   7 (its printed lines and report keys those of the JAX log
+   artifacts/c4-r5/final_eval_c4r5_250.log; every searched move through
+   K1: launches = searches x 251 + 3 per capture, two captures, no
+   plain-version call; phase 14 holds the same net's float32 raw policy
+   on those positions to the CPU's); the fused route's root visits
+   bit-equal to the general search's on 16 roots of those games (bf16 net,
+   cuDNN deterministic) and both timed at B=1; ``lineage`` with the labels
+   and a one-game probe per row; ``run_report`` on the committed metrics;
+   ``book_from_cache`` on artifacts/solver_cache_warmed.npz and three
+   solver probes with and without that book; ``distill``'s dataset (64 + 12
+   positions from ply 16) and 100 train steps. Prints each tool's seconds.
+21. The chess panel (run_chess_r5_evals.sh's tools) on the committed
+   chess-r5 net: ``chess_tactics`` raw on both 300-position sets (bf16;
+   float32 card vs CPU within one position per set), searched at 100
+   simulations on the first 64 rows of each, the uniform control at 100
+   simulations on 64 mate-in-2 rows (every decision equal to the CPU's);
+   ``mate_in_1_labels`` / ``mate_in_2_labels`` on the first 64 / 16 rows
+   equal to the committed masks; ``play_vs_opponent`` against random and
+   greedy, 4 games of 16 plies at 100 simulations from the first two
+   mate-in-1 rows (W/D/L and mean length equal to a replay of its moves on
+   the CPU engine; at least one game decisive).
+22. The kernels' JSON line, the card's line, and the result line.
 
 ``python3 chip_smoke.py --launch-shapes`` runs a tuning aid in place of the
 phases: K1 built with 1, 2, 4 and 8 games (warps) per block, each checked
@@ -145,8 +171,9 @@ RING_CAPACITY = 400_000
 TRAIN_BATCH = 1024
 AUX_BATCH = 256
 ARENA_GAMES = 256
-# Phase 12 scores the first arena as the loop does (200 positions) and, to
-# save time, only this many positions of the second.
+# Phase 12 scores, to save time, only this many positions of each arena
+# (the loop scores 200).
+FIRST_ARENA_POSITIONS = 40
 SECOND_ARENA_POSITIONS = 20
 # Phase 10, card vs CPU, per leaf: the L2 distance of the gradients over the
 # larger of the leaf's gradient norm and the floor. Seven batches read
@@ -967,11 +994,12 @@ def learner_phase(device):
 
     def counted(log):
         # The loop's call, timed, with the number of positions it scores
-        # (candidate moves from ply 8 on, at most 200; for time, at most
-        # SECOND_ARENA_POSITIONS after the first arena).
+        # (candidate moves from ply 8 on; for time, at most
+        # FIRST_ARENA_POSITIONS, then SECOND_ARENA_POSITIONS, not 200).
         active, movers = log.active.cpu().numpy(), log.movers.cpu().numpy()
         candidates = int((active[8:] & (movers[8:] == 0)).sum())
-        limit = 200 if not scored else SECOND_ARENA_POSITIONS
+        limit = (FIRST_ARENA_POSITIONS if not scored
+                 else SECOND_ARENA_POSITIONS)
         t0 = time.perf_counter()
         score = score_arena_log(log, max_positions=limit)
         scored.append((min(candidates, limit), time.perf_counter() - t0,
@@ -1162,6 +1190,18 @@ def supervisor_phase(run_copy: str) -> None:
         f"restored with a matching hash")
 
 
+def labelled_choices(evaluate, device):
+    """The raw policy's argmax legal move on each of data/eval_labels.npz's
+    2,000 positions, the net run on ``device``."""
+    import numpy as np
+
+    with np.load(EVAL_LABELS) as data:
+        obs = data["obs"]
+    legal = obs[:, 0, :, 1] + obs[:, 0, :, 2] == 0
+    probs, _ = evaluate(torch.from_numpy(obs).to(device))
+    return np.where(legal, probs.float().cpu().numpy(), -1.0).argmax(-1)
+
+
 def strength_phase(device) -> None:
     """Phase 14: the strength tool on the card with the committed net."""
     import numpy as np
@@ -1196,25 +1236,22 @@ def strength_phase(device) -> None:
                                                        device=d)
                   for run_id, d in (("fp32", device), ("fp32", "cpu"),
                                     ("bf16", device))}
-        with np.load(EVAL_LABELS) as data:
-            obs = data["obs"]
-        legal = obs[:, 0, :, 1] + obs[:, 0, :, 2] == 0
         choices = {}
         for key, (_, evaluate, _, meta) in loaded.items():
-            probs, _ = evaluate(torch.from_numpy(obs).to(key[1]))
-            choices[key] = np.where(legal, probs.float().cpu().numpy(),
-                                    -1.0).argmax(-1)
+            choices[key] = labelled_choices(evaluate, key[1])
             report, ms = timed(lambda: strength.labeled_policy_accuracy(
                 evaluate, EVAL_LABELS, device=key[1]))
             log(f"labeled policy accuracy, {key[0]} on {key[1]} (c4-r5 step "
-                f"{meta['steps']}, {len(obs)} positions, {ms:.0f} ms): "
+                f"{meta['steps']}, {len(choices[key])} positions, {ms:.0f} "
+                f"ms): "
                 f"{json.dumps(report)}")
         differ = int((choices[("fp32", device)]
                       != choices[("fp32", "cpu")]).sum())
         bf16_differ = int((choices[("bf16", device)]
                            != choices[("fp32", device)]).sum())
         log(f"argmax moves, float32 card vs float32 CPU: {differ} of "
-            f"{len(obs)} differ; bf16 card vs float32 card: {bf16_differ}")
+            f"{len(choices[key])} differ; bf16 card vs float32 card: "
+            f"{bf16_differ}")
         check(differ <= 2, f"{differ} float32 moves differ between the card "
               f"and the CPU")
         torch.backends.cudnn.allow_tf32 = True
@@ -1231,7 +1268,7 @@ def strength_phase(device) -> None:
               and 0.0 <= report["mean_rank_score"] <= 1.0
               and len(report["results"]) == 2,
               f"evaluate_strength report {report}")
-        log(f"evaluate_strength (bf16 net, general search {SIMS} sims at "
+        log(f"evaluate_strength (bf16 net, fused search {SIMS} sims at "
             f"B=1, vs perfect, 2 games from 12 random plies) in {wall:.1f} "
             f"s: {json.dumps(report)}")
 
@@ -1273,7 +1310,8 @@ CHESS_TRAINING_STATE = os.path.join(CHESS_DIR, "final_training_state")
 CHESS_LABELS = os.path.join(REPO, "data", "chess_tactic_labels.npz")
 RUN_CHESS_R5 = os.path.join(REPO, "run_chess_r5.sh")
 CHESS_BATCH = 128      # run_chess_r5.sh's games per generation
-CHESS_PLIES = 8        # self-play and learner plies (committed: 256)
+CHESS_PLIES = 8        # phase 17's self-play plies (committed: 256)
+CHESS_LEARNER_PLIES = 4  # phases 18 and 19: generation and arena plies
 CHESS_GAME_PLIES = 40  # phase 15's random games
 CHESS_LEARNER_STEPS = 16
 # Phase 16: a game may differ between the card and the CPU only where one of
@@ -1534,10 +1572,11 @@ def chess_learner_phase(device) -> str:
     from custom_alphazero_tpu_torch.runtime.loop import run
 
     results = tempfile.mkdtemp(prefix="chip_smoke_chess_")
-    # Games of CHESS_PLIES plies never end, so continuous generation would
-    # keep no sample; plain generation keeps every ply, as truncated draws.
+    # Games of CHESS_LEARNER_PLIES plies never end, so continuous
+    # generation would keep no sample; plain generation keeps every ply, as
+    # truncated draws (128 x 4 = 512 rows: the ring's min_size and a batch).
     cfg = chess_config({
-        "self_play.max_plies": str(CHESS_PLIES),
+        "self_play.max_plies": str(CHESS_LEARNER_PLIES),
         "self_play.continuous": "false",
         "replay.min_size": "512",
         "loop.max_sample_reuse": "0",
@@ -1592,13 +1631,15 @@ def chess_learner_phase(device) -> str:
 
 def chess_supervisor_phase(run_copy: str) -> None:
     """Phase 19: the supervisor with run_chess_r5.sh's flags word for word,
-    resuming phase 18's run for one generation of CHESS_PLIES plies."""
+    resuming phase 18's run for one generation of CHESS_LEARNER_PLIES
+    plies."""
     flags = script_flags(RUN_CHESS_R5)
     check(flags[0] == "--supervise.liveness_timeout_minutes=10"
           and "--game=chess" in flags and "--mcts.use_gumbel=true" in flags,
           f"run_chess_r5.sh flags: {flags}")
     extra = [f"--run.results_dir={run_copy}", "--run.run_id=smoke",
-             "--loop.generations=1", f"--self_play.max_plies={CHESS_PLIES}"]
+             "--loop.generations=1",
+             f"--self_play.max_plies={CHESS_LEARNER_PLIES}"]
     try:
         out, wall = run_supervisor(flags + extra)
     finally:
@@ -1612,6 +1653,506 @@ def chess_supervisor_phase(run_copy: str) -> None:
         f"supervisor` with run_chess_r5.sh's {len(flags)} flags + "
         f"{len(extra)} overrides exited 0 in {wall:.1f} s, resumed at step "
         f"{step} and played a generation")
+
+
+# ---- the evaluation tools: the Connect-4 battery and the chess panel -------
+
+C4R5_METRICS = os.path.join(REPO, "artifacts", "c4-r5", "metrics.jsonl")
+C4R5_EVAL_LOG = os.path.join(REPO, "artifacts", "c4-r5",
+                             "final_eval_c4r5_250.log")
+WARMED_CACHE = os.path.join(REPO, "artifacts", "solver_cache_warmed.npz")
+MATE1 = os.path.join(REPO, "data", "chess_tactics_300.npz")
+MATE2 = os.path.join(REPO, "data", "chess_mate2_300.npz")
+EQUAL_ROOTS = 16       # phase 20: roots of the fused-vs-general check
+DISTILL_POSITIONS = 64
+DISTILL_STEPS = 100
+TACTICS_ROWS = 64      # phase 21: searched rows of each tactics set
+MATE2_LABEL_ROWS = 16
+MATCH_GAMES = 4
+MATCH_PLIES = 16       # phase 21's matches (the tool plays up to 200 plies)
+# What JAX's panel on the same net printed (TPU results, not times):
+# artifacts/chess-r5/chess_r5_best_panel.log.
+JAX_PANEL = {"mate-in-1": 0.13494809688581316, "mate-in-2": 0.09}
+
+
+def key_tree(x):
+    """The nested key structure of a JSON value (lists and scalars: None)."""
+    if isinstance(x, dict):
+        return {k: key_tree(v) for k, v in x.items()}
+    return None
+
+
+def line_heads(lines) -> list:
+    """What each printed line starts with: the text before its first ':',
+    numbers as N (a JSON line: '{')."""
+    return ["{" if line.startswith("{")
+            else re.sub(r"\d+", "N", line.split(":")[0]) for line in lines]
+
+
+def cat_connect_n(states):
+    """One batch of the B=1 ConnectNStates ``states``."""
+    import dataclasses
+
+    return type(states[0])(**{
+        f.name: torch.cat([getattr(s, f.name) for s in states])
+        for f in dataclasses.fields(states[0])})
+
+
+def board_of_key(current: int, mask: int):
+    """The canonical (6, 7) board of a solver bitboard (bit = col * 7 + row
+    from the bottom; ``current`` = the side to move's stones)."""
+    import numpy as np
+
+    board = np.zeros((6, 7), np.int8)
+    for c in range(7):
+        for r in range(6):
+            bit = 1 << (c * 7 + r)
+            if mask & bit:
+                board[5 - r, c] = 1 if current & bit else -1
+    return board
+
+
+def captured_stdout(fn):
+    """(fn(), the lines it printed), printed through to the log as well."""
+    tee = Tee(sys.stdout)
+    sys.stdout = tee
+    try:
+        out = fn()
+    finally:
+        sys.stdout = tee.stream
+    return out, tee.text().splitlines()
+
+
+def c4_battery_phase(device) -> dict:
+    """Phase 20: run_c4_r4_evals.sh's tools on the committed c4-r5 net,
+    through their mains, on the card; returns K1's launches there."""
+    import dataclasses
+
+    import numpy as np
+
+    from custom_alphazero_tpu_torch import paths
+    from custom_alphazero_tpu_torch import solver as sv
+    from custom_alphazero_tpu_torch.config import (
+        MCTSConfig,
+        from_json,
+        to_json,
+    )
+    from custom_alphazero_tpu_torch.ops import fused_mcts_v2
+    from custom_alphazero_tpu_torch.search.mcts import MCTS
+    from custom_alphazero_tpu_torch.tools import (
+        book_from_cache,
+        distill,
+        final_eval,
+        lineage,
+        run_report,
+        strength,
+    )
+
+    Search = fused_mcts_v2.FusedConnectNSearchV2
+    results = tempfile.mkdtemp(prefix="chip_smoke_evals_")
+    os.environ["CAZ_SOLVER_CACHE"] = os.path.join(results, "solver_cache.npz")
+    seconds = {}
+    try:
+        with open(C4R5_CONFIG) as fp:
+            cfg = from_json(fp.read())
+        os.makedirs(paths.tensorboard_path(results, "connect_n", "c4r5"))
+        with open(os.path.join(paths.run_path(
+                results, "connect_n", "c4r5"), "config.json"), "w") as fp:
+            fp.write(to_json(cfg))
+        shutil.copytree(CHECKPOINT, paths.evaluation_iteration_path(
+            results, "connect_n", "c4r5", 11600))
+        shutil.copy(C4R5_METRICS, paths.tensorboard_path(
+            results, "connect_n", "c4r5"))
+        common = ["--run_id=c4r5", f"--results_dir={results}",
+                  f"--device={device}"]
+
+        # final_eval (run_c4_r4_evals.sh's first command at 2 games), the
+        # root states of its first searches kept for the check below.
+        roots = []
+        search_root_stats = Search.search_root_stats
+
+        def recording(self, root_states, *args, **kwargs):
+            if len(roots) < EQUAL_ROOTS:
+                roots.append(dataclasses.replace(root_states, **{
+                    f.name: getattr(root_states, f.name).clone()
+                    for f in dataclasses.fields(root_states)}))
+            return search_root_stats(self, root_states, *args, **kwargs)
+
+        captures = Search.captures
+        fused_mcts_v2.wave_step.launches = 0
+        fused_mcts_v2.wave_step_reference.calls = 0
+        Search.search_root_stats = recording
+        try:
+            (report, lines), ms = timed(lambda: captured_stdout(
+                lambda: final_eval.main(common + [
+                    f"--labels={EVAL_LABELS}", "--games=2",
+                    f"--sims={SIMS}", "--seed=7"])))
+        finally:
+            Search.search_root_stats = search_root_stats
+        seconds["final_eval"] = ms / 1e3
+        launches = fused_mcts_v2.wave_step.launches
+        final_captures = Search.captures - captures
+        searched = sum(report[f"mcts_vs_{o}"]["positions"]
+                       for o in ("random", "perfect"))
+        check(fused_mcts_v2.wave_step_reference.calls == 0,
+              "final_eval: the plain version ran")
+        check(final_captures == 2, f"final_eval: {final_captures} captures")
+        expected = (searched * (SIMS + 1)
+                    + final_captures * fused_mcts_v2.WARMUP_WAVES)
+        check(searched > 0 and launches == expected,
+              f"final_eval: K1 launched {launches} times, expected "
+              f"{expected} for {searched} searched moves")
+        with open(C4R5_EVAL_LOG) as fp:
+            jax_lines = [line.rstrip("\n") for line in fp
+                         if not line.startswith("WARNING")]
+        check(line_heads(lines) == line_heads(jax_lines),
+              f"final_eval printed {line_heads(lines)}, JAX "
+              f"{line_heads(jax_lines)}")
+        check(key_tree(json.loads(lines[-1])) == key_tree(json.loads(
+            jax_lines[-1])), "final_eval: the report's keys differ from JAX's")
+        raw = report["raw_policy_labeled"]
+        jax_raw = json.loads(jax_lines[-1])["raw_policy_labeled"]
+        log(f"final_eval (bf16 net, {SIMS} sims, 2 games per opponent, "
+            f"seed 7) in {ms / 1e3:.1f} s: raw-policy labelled move "
+            f"accuracy {raw['move_accuracy']} (JAX log: "
+            f"{jax_raw['move_accuracy']}); vs random "
+            f"{json.dumps({k: v for k, v in report['mcts_vs_random'].items() if k != 'openings'})}"
+            f"; vs perfect "
+            f"{json.dumps({k: v for k, v in report['mcts_vs_perfect'].items() if k != 'openings'})}"
+            f"; {searched} searched moves, K1 launched {launches} times, "
+            f"plain version 0, {final_captures} graph captures")
+
+        # The fused route's root visits against the general search's, from
+        # the first EQUAL_ROOTS roots of those games, in one batch.
+        env, evaluate, _, _ = strength.load_run_model("c4r5", results,
+                                                      device=device)
+        states = cat_connect_n(roots)
+        mcts_cfg = MCTSConfig(simulations=SIMS)
+        torch.backends.cudnn.deterministic = True
+        fused = Search(env, mcts_cfg, device)
+        mcts = MCTS(env, mcts_cfg)
+        fused_visits = fused.search_root_stats(states, evaluate, None,
+                                               SIMS)[0]
+        tree, general_ms = timed(lambda: mcts.search(states, evaluate, None,
+                                                     SIMS))
+        general_visits = mcts.root_child_visits(tree)
+        torch.backends.cudnn.deterministic = False
+        check(torch.equal(fused_visits, general_visits),
+              f"fused and general root visits differ on "
+              f"{int((fused_visits != general_visits).any(-1).sum())} of "
+              f"{len(roots)} roots")
+        # One search at B=1 on each route, the fused one replayed.
+        one = cat_connect_n(roots[:1])
+        fused.search_root_stats(one, evaluate, None, SIMS)  # captures
+        _, fused_ms = timed(lambda: fused.search_root_stats(
+            one, evaluate, None, SIMS))
+        _, general_one_ms = timed(lambda: mcts.search(one, evaluate, None,
+                                                      SIMS))
+        log(f"  fused vs general root visits on {len(roots)} roots of those "
+            f"games (bf16 net, cuDNN deterministic): bit-equal; at B=1 "
+            f"the fused search takes {fused_ms / (SIMS + 1):.4f} ms per wave "
+            f"({fused_ms:.1f} ms per search), the general "
+            f"{general_one_ms / SIMS:.2f} ms per wave; the general at "
+            f"B={len(roots)} {general_ms / SIMS:.2f} ms per wave")
+
+        # lineage (the battery's third command), with a one-game probe.
+        captures = Search.captures
+        (entries, lines), ms = timed(lambda: captured_stdout(
+            lambda: lineage.main(common + [f"--labels={EVAL_LABELS}",
+                                           "--probe_games=1"])))
+        seconds["lineage"] = ms / 1e3
+        lineage_captures = Search.captures - captures
+        rows = [e["iteration"] for e in entries["entries"]]
+        check(rows == ["random-init", 11600]
+              and all("mcts_move_accuracy" in e for e in entries["entries"])
+              and lineage_captures == 2,
+              f"lineage rows {rows}, {lineage_captures} captures")
+        check(lines[0].startswith("| promotion iter | steps | labeled move "
+                                  "acc |") and lines[-1].startswith("{"),
+              f"lineage printed {lines[:1]}")
+        log(f"lineage (labels, one probe game per row) in {ms / 1e3:.1f} s, "
+            f"{lineage_captures} graph captures: {lines[2]} / {lines[3]}")
+
+        # run_report (the fourth command) on the committed metrics.
+        (summary, lines), ms = timed(lambda: captured_stdout(
+            lambda: run_report.main(common[:2])))
+        seconds["run_report"] = ms / 1e3
+        keys = ["steps", "loss_first", "loss_last", "loss_min",
+                "sims_per_s_median", "generations", "games_total",
+                "samples_total", "arenas", "promotions", "arena_history",
+                "solver_score_history", "elo_history", "elo_gain"]
+        check([k for k in keys if k in summary] == list(summary)
+              and summary["arenas"] > 0
+              and line_heads(lines) == list(summary),
+              f"run_report keys {list(summary)}")
+        log(f"run_report in {ms / 1e3:.2f} s: steps {summary['steps']}, "
+            f"{summary['arenas']} arenas, {summary['promotions']} "
+            f"promotions, Elo gain {summary.get('elo_gain')}")
+
+        # book_from_cache on the committed warmed cache, and three probes
+        # with and without the book.
+        book = os.path.join(results, "7x6_cache.book")
+        n, ms = timed(lambda: book_from_cache.main(
+            [f"--cache={WARMED_CACHE}", f"--out={book}"]))
+        seconds["book_from_cache"] = ms / 1e3
+        booked = sv.ConnectFourSolver(book=book, cache=None)
+        bare = sv.ConnectFourSolver(book=None, cache=None)
+        with np.load(WARMED_CACHE) as data:
+            keys, scores = data["keys"], data["scores"]
+        plies = np.array([bin(int(m)).count("1") for m in keys[:, 1]])
+        for depth in (12, 14, 16):
+            i = int(np.nonzero(plies == depth)[0][0])
+            board = board_of_key(*map(int, keys[i]))
+            check(booked.solve_board(board) == bare.solve_board(board)
+                  == int(scores[i]), f"book probe at ply {depth}")
+        check(booked.book_depth == 16 and n > 50_000, f"book of {n} entries")
+        log(f"book_from_cache: {n} entries in {ms / 1e3:.2f} s; the solver "
+            f"loads it (depth {booked.book_depth}) and three probes (plies "
+            f"12, 14, 16) answer as without a book")
+
+        # distill: DISTILL_POSITIONS oracle-labelled positions, then
+        # DISTILL_STEPS train steps of the tool's default net.
+        n_all = DISTILL_POSITIONS + DISTILL_POSITIONS // 5
+        data, label_ms = timed(lambda: distill.labeled_dataset(
+            n_all, seed=0, min_ply=16))
+        train = {k: v[:DISTILL_POSITIONS] for k, v in data.items()}
+        test = {k: v[DISTILL_POSITIONS:] for k, v in data.items()}
+        result, ms = timed(lambda: distill.run_distillation(
+            train, test, steps=DISTILL_STEPS, log_every=DISTILL_STEPS,
+            device=device))
+        seconds["distill"] = (label_ms + ms) / 1e3
+        loss = result["history"][-1]["loss"]
+        check(math.isfinite(loss) and result["state"].steps == DISTILL_STEPS,
+              f"distill: loss {loss}")
+        log(f"distill: {n_all} positions labelled in {label_ms / 1e3:.1f} s, "
+            f"{DISTILL_STEPS} steps in {ms / 1e3:.2f} s "
+            f"({ms / DISTILL_STEPS:.2f} ms per step, evaluation included); "
+            f"train {result['train']}, test {result['test']}")
+    finally:
+        shutil.rmtree(results, ignore_errors=True)
+    log("c4 battery seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
+    return launches
+
+
+def chess_panel_phase(device) -> None:
+    """Phase 21: run_chess_r5_evals.sh's tools on the committed chess-r5
+    net (iteration 2400), cut to size, on the card."""
+    import numpy as np
+
+    from custom_alphazero_tpu_torch import paths
+    from custom_alphazero_tpu_torch.config import apply_overrides, to_json
+    from custom_alphazero_tpu_torch.envs.chess.engine import Chess
+    from custom_alphazero_tpu_torch.search.mcts import MCTS
+    from custom_alphazero_tpu_torch.tools import (
+        chess_strength,
+        chess_tactics,
+        strength,
+    )
+
+    results = tempfile.mkdtemp(prefix="chip_smoke_panel_")
+    seconds = {}
+    try:
+        cfg = chess_config()
+        for run_id, dtype in (("chessr5", cfg.model.compute_dtype),
+                              ("chessr5_fp32", "float32")):
+            run_dir = paths.run_path(results, "chess", run_id)
+            os.makedirs(run_dir)
+            with open(os.path.join(run_dir, "config.json"), "w") as fp:
+                fp.write(to_json(apply_overrides(
+                    cfg, {"model.compute_dtype": dtype})))
+            shutil.copytree(CHESS_CHECKPOINT, paths.evaluation_iteration_path(
+                results, "chess", run_id, 2400))
+        subsets = {}
+        for name, src in (("mate-in-1", MATE1), ("mate-in-2", MATE2)):
+            with np.load(src) as data:
+                subsets[name] = os.path.join(results, f"{name}.npz")
+                np.savez(subsets[name], **{k: data[k][:TACTICS_ROWS]
+                                           for k in data})
+        common = ["--run_id=chessr5", f"--results_dir={results}",
+                  f"--device={device}"]
+
+        # Raw policy on both whole sets (bf16), then float32 card vs CPU.
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        fp32 = {d: strength.load_run_model("chessr5_fp32", results,
+                                           game="chess", device=d)[1]
+                for d in (device, "cpu")}
+        for name, src in (("mate-in-1", MATE1), ("mate-in-2", MATE2)):
+            report, ms = timed(lambda: chess_tactics.main(
+                common + [f"--labels={src}"]))
+            seconds[f"{name} raw"] = ms / 1e3
+            acc = {d: chess_tactics.evaluate_tactics(
+                fp32[d], src, device=d)["accuracy"] for d in (device, "cpu")}
+            hits_apart = abs(acc[device] - acc["cpu"]) * report["positions"]
+            check(hits_apart <= 1.0 + 1e-9, f"{name}: float32 raw accuracy "
+                  f"{acc[device]} on the card, {acc['cpu']} on the CPU")
+            log(f"{name} raw policy ({report['positions']} positions) in "
+                f"{ms / 1e3:.2f} s: bf16 {report['accuracy']:.4f} (JAX log: "
+                f"{JAX_PANEL[name]:.4f}), float32 card {acc[device]:.4f}, "
+                f"CPU {acc['cpu']:.4f}; random baseline "
+                f"{report['random_baseline']:.4f}")
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+        # Searched at 100 simulations on the first TACTICS_ROWS rows.
+        for name in ("mate-in-1", "mate-in-2"):
+            report, ms = timed(lambda: chess_tactics.main(
+                common + [f"--labels={subsets[name]}", "--mcts=true",
+                          f"--sims={cfg.mcts.simulations}"]))
+            seconds[f"{name} searched"] = ms / 1e3
+            check(report["positions"] == TACTICS_ROWS
+                  and 0.0 <= report["accuracy"] <= 1.0,
+                  f"{name} searched: {report}")
+            log(f"{name} searched ({cfg.mcts.simulations} sims, "
+                f"{TACTICS_ROWS} rows at B={TACTICS_ROWS}) in "
+                f"{ms / 1e3:.1f} s: accuracy {report['accuracy']:.4f}, "
+                f"{ms / cfg.mcts.simulations:.1f} ms per wave")
+
+        # The uniform control on the card, its decisions held to the CPU's.
+        visits = []
+        root_child_visits = MCTS.root_child_visits
+
+        def recording(self, tree):
+            out = root_child_visits(self, tree)
+            visits.append(out.cpu())
+            return out
+
+        MCTS.root_child_visits = recording
+        try:
+            report, ms = timed(lambda: chess_tactics.main([
+                f"--labels={subsets['mate-in-2']}", "--uniform=true",
+                "--mcts=true", "--sims=100", f"--device={device}"]))
+            cpu_report = chess_tactics.evaluate_tactics(
+                chess_tactics.uniform_evaluate(1968), subsets["mate-in-2"],
+                use_mcts=True, sims=100, device="cpu")
+        finally:
+            MCTS.root_child_visits = root_child_visits
+        seconds["uniform control"] = ms / 1e3
+        card_visits, cpu_visits = visits
+        same_move = card_visits.argmax(-1) == cpu_visits.argmax(-1)
+        check(bool(same_move.all())
+              and report["accuracy"] == cpu_report["accuracy"],
+              f"uniform control: {int((~same_move).sum())} decisions differ "
+              f"between the card and the CPU")
+        log(f"mate-in-2 uniform control (100 sims, {TACTICS_ROWS} rows) in "
+            f"{ms / 1e3:.1f} s: accuracy {report['accuracy']:.4f}; every "
+            f"decision equal to the CPU's "
+            f"({int((card_visits == cpu_visits).all(-1).sum())} of "
+            f"{TACTICS_ROWS} root visit rows equal)")
+
+        # The labels of the committed rows, recomputed on the card.
+        env = Chess(cfg.chess)
+        for fn, src, key, n in (
+                (chess_tactics.mate_in_1_labels, MATE1, "mate_mask",
+                 TACTICS_ROWS),
+                (chess_tactics.mate_in_2_labels, MATE2, "mate2_mask",
+                 MATE2_LABEL_ROWS)):
+            with np.load(src) as data:
+                data = {k: data[k][:n] for k in data}
+            (labels, legal), ms = timed(lambda: fn(
+                env, chess_tactics.states_from_npz(env, data, device)))
+            check(np.array_equal(labels.cpu().numpy(), data[key])
+                  and np.array_equal(legal.cpu().numpy(), data["legal_mask"]),
+                  f"{fn.__name__} differs from the committed {key}")
+            log(f"{fn.__name__} on {n} committed rows: equal to {key} and "
+                f"legal_mask ({ms:.0f} ms)")
+
+        # Matches against the baseline opponents, MATCH_PLIES plies from the
+        # first MATCH_GAMES // 2 mate-in-1 rows (so games end), the moves
+        # played replayed on the CPU engine.
+        _, evaluate, _, _ = strength.load_run_model(
+            "chessr5", results, game="chess", device=device)
+        with np.load(MATE1) as data:
+            rows = {k: data[k][:MATCH_GAMES // 2] for k in data}
+        decisive = 0
+        for opponent in ("random", "greedy"):
+            (r, moves), ms = timed(lambda: played_moves(
+                lambda env: chess_strength.play_vs_opponent(
+                    env, evaluate, opponent=opponent, games=MATCH_GAMES,
+                    sims=cfg.mcts.simulations, max_plies=MATCH_PLIES,
+                    device=device), cfg.chess, rows))
+            seconds[f"vs {opponent}"] = ms / 1e3
+            replayed = replay_on_cpu(cfg.chess, rows, moves)
+            check(r["games"] == MATCH_GAMES
+                  and {k: r[k] for k in replayed} == replayed,
+                  f"vs {opponent}: {r}, replayed on the CPU {replayed}")
+            decisive += r["wins"] + r["losses"]
+            log(f"vs {opponent} ({MATCH_GAMES} games from mate-in-1 rows, "
+                f"{MATCH_PLIES} plies, {cfg.mcts.simulations} sims) in "
+                f"{ms / 1e3:.1f} s: {r}; W/D/L and length equal to the CPU "
+                f"replay of its moves")
+        check(decisive > 0, "no match game ended")
+    finally:
+        shutil.rmtree(results, ignore_errors=True)
+    log("chess panel seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
+
+
+def played_moves(play, chess_cfg, rows):
+    """(play(env), the moves it played): ``env`` a chess env whose games
+    start from the tactics rows ``rows``; the moves are one list of (games,)
+    arrays per ``init`` call, the searches' own steps left out."""
+    from custom_alphazero_tpu_torch.envs.chess.engine import Chess
+    from custom_alphazero_tpu_torch.search.mcts import MCTS
+    from custom_alphazero_tpu_torch.tools.chess_tactics import states_from_npz
+
+    env = Chess(chess_cfg)
+    step, search = env.step, MCTS.search
+    halves, searching = [], [False]
+
+    def init(batch, device=None):
+        check(batch == len(rows["board"]), f"init({batch})")
+        halves.append([])
+        return states_from_npz(env, rows, device)
+
+    def recording_step(state, action):
+        if not searching[0]:
+            halves[-1].append(action.cpu().numpy())
+        return step(state, action)
+
+    def flagged_search(self, *args, **kwargs):
+        searching[0] = True
+        try:
+            return search(self, *args, **kwargs)
+        finally:
+            searching[0] = False
+
+    env.init, env.step = init, recording_step
+    MCTS.search = flagged_search
+    try:
+        return play(env), halves
+    finally:
+        MCTS.search = search
+
+
+def replay_on_cpu(chess_cfg, rows, halves) -> dict:
+    """W/D/L and mean length of ``play_vs_opponent``'s games, replayed one
+    game at a time on the CPU engine from ``played_moves``' moves (the
+    tested side moves first in the first half)."""
+    import numpy as np
+
+    from custom_alphazero_tpu_torch.envs.chess.engine import Chess
+    from custom_alphazero_tpu_torch.tools.chess_tactics import states_from_npz
+
+    env = Chess(chess_cfg)
+    results, lengths = [], []
+    for tested_first, moves in zip((True, False), halves):
+        for g in range(len(rows["board"])):
+            state = states_from_npz(
+                env, {k: v[g:g + 1] for k, v in rows.items()}, "cpu")
+            ply = 0
+            while ply < len(moves) and not bool(state.terminal[0]):
+                state, _ = env.step(state,
+                                    torch.from_numpy(moves[ply][g:g + 1]))
+                ply += 1
+            tested_last = ((ply - 1) % 2 == 0) == tested_first
+            won = bool(state.terminal[0] & state.won[0])
+            results.append((1 if tested_last else -1) if won else 0)
+            lengths.append(ply)
+    return {"wins": results.count(1), "draws": results.count(0),
+            "losses": results.count(-1),
+            "mean_game_plies": float(np.mean(lengths))}
 
 
 def launch_shapes(device) -> None:
@@ -1837,7 +2378,13 @@ def main() -> int:
     # ---- 19. the supervisor with run_chess_r5.sh's flags --------------------
     chess_supervisor_phase(chess_run_copy)
 
-    # ---- 20. result lines ---------------------------------------------------
+    # ---- 20. the Connect-4 evaluation battery -------------------------------
+    battery_launches = c4_battery_phase(device)
+
+    # ---- 21. the chess panel ------------------------------------------------
+    chess_panel_phase(device)
+
+    # ---- 22. result lines ---------------------------------------------------
     k2_err, k2_ms, k2_plain_ms, k2_bound_ms, k2_carry_bound_ms, k2_fit = k2
     check(k2_launches > 0 and k2_err == 0.0, "K2 did not run or disagreed")
     kernels = [{
@@ -1848,6 +2395,7 @@ def main() -> int:
         "launches": launches,
         "launches_arena": arena_launches,
         "launches_learner": learner_launches,
+        "launches_strength_tool": battery_launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

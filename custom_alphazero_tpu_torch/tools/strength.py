@@ -5,14 +5,17 @@ Each candidate move is scored 1 - (rank+1)/num_legal against the perfect
 ranking, and "move accuracy" is the fraction of moves that are
 solver-optimal (same best game-theoretic value). Positions come from games
 played by the policy under test (raw network argmax or a full search at
-B=1 with the general ``MCTS.search``), every move of the tested player
-scored on the host through the native solver. With the same evaluator and
-no root noise, the moves and the report equal the JAX package's on the
-CPU (tests/test_torch_port_oracle.py).
+B=1), every move of the tested player scored on the host through the
+native solver. The search is the fused one (``FusedConnectNSearchV2``:
+kernel K1, one CUDA graph replay per wave on the card) wherever
+``fused_mcts_v2.supports`` the board and config, else the general
+``MCTS.search``; both give the same root visits. With the same evaluator
+and no root noise, the moves and the report equal the JAX package's on the
+CPU (tests/test_torch_port_oracle.py, tests/test_torch_port_evaltools.py).
 
     python -m custom_alphazero_tpu_torch.tools.strength --run_id=demo \\
         [--which=best|last] [--games=20] [--sims=250] [--opponent=random] \\
-        [--raw_policy=false] [--labels=data/eval_labels.npz]
+        [--raw_policy=false] [--labels=data/eval_labels.npz] [--device=cpu]
 """
 
 from __future__ import annotations
@@ -31,12 +34,14 @@ from custom_alphazero_tpu_torch.config import (
     from_json,
     resolve_device,
 )
+from custom_alphazero_tpu_torch.envs.chess.engine import Chess
 from custom_alphazero_tpu_torch.envs.connect_n import ConnectN
 from custom_alphazero_tpu_torch.io.checkpoint import (
     latest_evaluation_iteration,
     load_checkpoint,
 )
 from custom_alphazero_tpu_torch.models.convert import from_jax_variables
+from custom_alphazero_tpu_torch.ops import fused_mcts_v2
 from custom_alphazero_tpu_torch.runtime.evaluate import make_evaluate_fn
 from custom_alphazero_tpu_torch.search.mcts import MCTS
 
@@ -53,9 +58,17 @@ def evaluate_strength(
     solver: Optional[sv.ConnectFourSolver] = None,
     opening_plies: int = 8,
     device=None,
+    fused: bool = True,
 ) -> dict:
     """Play games (tested policy as first mover vs an opponent) and score
     the tested policy's moves with the solver. ``device=None`` is the card.
+
+    fused: True (the default) searches with ``FusedConnectNSearchV2``
+    wherever ``fused_mcts_v2.supports(env, mcts_cfg)``, else with the
+    general ``MCTS.search``; False forces the general search. On the card
+    the fused search captures one CUDA graph per call of this function
+    (batch 1, ``mcts_cfg.simulations``, ``evaluate_fn``), so
+    ``evaluate_fn`` must be capturable.
 
     opening_plies: random opening moves played by both sides before the
     policies take over (solver queries on near-empty boards take seconds;
@@ -75,7 +88,12 @@ def evaluate_strength(
     """
     device = resolve_device(device)
     solver = solver or sv.ConnectFourSolver()
-    mcts = MCTS(env, mcts_cfg)
+    fused = fused and fused_mcts_v2.supports(env, mcts_cfg)
+    if fused:
+        fused_search = fused_mcts_v2.FusedConnectNSearchV2(env, mcts_cfg,
+                                                           device)
+    else:
+        mcts = MCTS(env, mcts_cfg)
     rng = np.random.default_rng(seed)
 
     def step(state, action: int):
@@ -110,10 +128,15 @@ def evaluate_strength(
                 if use_mcts:
                     generator = torch.Generator(device=device).manual_seed(
                         seed * 7919 + game * 101 + ply)
-                    tree = mcts.search(state, evaluate_fn, generator,
-                                       mcts_cfg.simulations)
-                    visits = mcts.root_child_visits(tree)[0].cpu().numpy()
-                    action = int(visits.argmax())
+                    if fused:
+                        visits = fused_search.search_root_stats(
+                            state, evaluate_fn, generator,
+                            mcts_cfg.simulations)[0]
+                    else:
+                        visits = mcts.root_child_visits(mcts.search(
+                            state, evaluate_fn, generator,
+                            mcts_cfg.simulations))
+                    action = int(visits[0].cpu().numpy().argmax())
                 else:
                     probs = evaluate_fn(env.observe(state))[0][0]
                     probs = probs.float().cpu().numpy()
@@ -183,21 +206,17 @@ def load_run_model(run_id: str, results_dir: str = "results",
                    device=None):
     """Load a run's model, written by either package, for evaluation:
     ``which`` = "best" (newest promoted lineage under evaluation/iteration_N)
-    or "last" (the training/ checkpoint).
+    or "last" (the training/ checkpoint); ``game`` is "connect_n" or
+    "chess".
 
     Returns (env, evaluate_fn, cfg, meta): evaluate_fn(obs) -> (probs,
     value) runs the port's net in the config's compute dtype on ``device``
     (None = the card)."""
-    if game != "connect_n":
-        raise NotImplementedError(
-            f"game={game!r} is not ported yet (ROADMAP.md queue 1, "
-            "'Chess engine')"
-        )
     device = resolve_device(device)
     with open(os.path.join(paths.run_path(results_dir, game, run_id),
                            paths.CONFIG_FILE)) as fp:
         cfg = from_json(fp.read())
-    env = ConnectN(cfg.connect_n)
+    env = Chess(cfg.chess) if game == "chess" else ConnectN(cfg.connect_n)
     if which == "best":
         found = latest_evaluation_iteration(
             paths.evaluation_path(results_dir, game, run_id)
@@ -301,14 +320,16 @@ def main(argv=None):
     args = dict(a.split("=", 1) for a in (sys.argv[1:] if argv is None
                                           else argv))
     run_id = args["--run_id"]
+    device = args.get("--device")
     env, evaluate_fn, cfg, meta = load_run_model(
         run_id, args.get("--results_dir", "results"),
-        args.get("--which", "best"),
+        args.get("--which", "best"), device=device,
     )
     print(f"Loaded {args.get('--which', 'best')} model of run {run_id} "
           f"(steps={meta.get('steps')}, iteration={meta.get('iteration')})")
     if "--labels" in args:
-        acc = labeled_policy_accuracy(evaluate_fn, args["--labels"])
+        acc = labeled_policy_accuracy(evaluate_fn, args["--labels"],
+                                      device=device)
         print(f"labeled-set raw policy: {acc}")
     sims = int(args.get("--sims", cfg.mcts.simulations))
     report = evaluate_strength(
@@ -320,6 +341,7 @@ def main(argv=None):
         mcts_cfg=MCTSConfig(simulations=sims),
         opponent=args.get("--opponent", "random"),
         seed=int(args.get("--seed", 0)),
+        device=device,
     )
     results = report.pop("results")
     wdl = (sum(r == 1 for r in results), sum(r == 0 for r in results),

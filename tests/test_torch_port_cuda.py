@@ -422,3 +422,63 @@ def test_chess_engine_and_gumbel_search_on_card():
         outs.append((action.cpu(), search.root_child_visits(tree).cpu()))
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opponent", ["random", "perfect"])
+def test_strength_tool_fused_route_on_card(tmp_path, monkeypatch, opponent):
+    """evaluate_strength on the card: the fused route (every search K1,
+    replayed from a CUDA graph) and the general route give the CPU's
+    report, with a dyadic evaluator (exact everywhere)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from custom_alphazero_tpu_torch.ops import fused_mcts_v2
+    from custom_alphazero_tpu_torch.tools import strength
+
+    monkeypatch.setenv("CAZ_SOLVER_CACHE", str(tmp_path / "cache.npz"))
+    env = ConnectN(ConnectNConfig())
+    evaluate = chip_smoke.dyadic_evaluate(7)
+    kwargs = dict(num_games=1, mcts_cfg=MCTSConfig(simulations=64),
+                  opponent=opponent, seed=5, opening_plies=12)
+    want = strength.evaluate_strength(env, evaluate, device="cpu", **kwargs)
+    for fused in (True, False):
+        fused_mcts_v2.wave_step.launches = 0
+        fused_mcts_v2.wave_step_reference.calls = 0
+        got = strength.evaluate_strength(env, evaluate, device="cuda",
+                                         fused=fused, **kwargs)
+        assert got == want and got["positions"] > 0
+        assert fused_mcts_v2.wave_step_reference.calls == 0
+        assert (fused_mcts_v2.wave_step.launches > 0) == fused
+
+
+@pytest.mark.cuda
+def test_chess_tactics_labels_and_search_on_card(tmp_path):
+    """The tactics labels of committed rows, recomputed on the card, equal
+    the stored masks; a uniform-evaluator search of 8 rows on the card
+    reports what the CPU's does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from custom_alphazero_tpu_torch.envs.chess.engine import Chess
+    from custom_alphazero_tpu_torch.tools import chess_tactics
+
+    env = Chess()
+    for src, fn, key, rows in (
+            (chip_smoke.MATE1, chess_tactics.mate_in_1_labels, "mate_mask",
+             16),
+            (chip_smoke.MATE2, chess_tactics.mate_in_2_labels, "mate2_mask",
+             4)):
+        with np.load(src) as data:
+            data = {k: data[k][:rows] for k in data}
+        labels, legal = fn(env, chess_tactics.states_from_npz(env, data,
+                                                              "cuda"))
+        assert np.array_equal(labels.cpu().numpy(), data[key])
+        assert np.array_equal(legal.cpu().numpy(), data["legal_mask"])
+    with np.load(chip_smoke.MATE1) as data:
+        np.savez(tmp_path / "t.npz", **{k: data[k][:8] for k in data})
+    reports = [chess_tactics.evaluate_tactics(
+        chess_tactics.uniform_evaluate(env.num_actions),
+        str(tmp_path / "t.npz"), use_mcts=True, sims=16, batch=8,
+        device=device) for device in ("cuda", "cpu")]
+    assert reports[0] == reports[1]

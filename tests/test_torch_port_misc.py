@@ -104,7 +104,12 @@ def test_port_imports_no_jax():
                     "tools/visualize.py", "runtime/supervisor.py",
                     "envs/chess/tables.py", "envs/chess/engine.py",
                     "envs/chess/__init__.py", "tools/perft.py",
-                    "search/gumbel.py"}
+                    "search/gumbel.py", "tools/cli.py", "tools/run_report.py",
+                    "tools/book_from_cache.py", "tools/final_eval.py",
+                    "tools/lineage.py", "tools/distill.py",
+                    "tools/chess_strength.py", "tools/chess_tactics.py",
+                    "tools/bench_chess.py", "tools/profile_chess.py",
+                    "tools/chess_inloop_bench.py"}
     assert learner_side <= {path.relative_to(package).as_posix()
                             for path in files[:-1]}
     for path in files:

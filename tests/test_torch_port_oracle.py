@@ -334,18 +334,20 @@ def test_strength_cli_runs_on_the_card_unless_asked(tmp_path, monkeypatch,
         strength.main([f"--results_dir={tmp_path}", "--run_id=r"])
     with pytest.raises(FileNotFoundError, match="No promoted model"):
         strength.load_run_model("r", str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="Chess engine"):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         strength.load_run_model("r", str(tmp_path), game="chess")
-    # main() parses the JAX tool's flags.
+    # main() parses the JAX tool's flags, and --device.
     seen = {}
     _, uniform = _uniform_pair()
-    monkeypatch.setattr(strength, "load_run_model", lambda *a: (
-        ConnectN(), uniform, Config(), {"steps": 7, "iteration": 3}))
+    monkeypatch.setattr(strength, "load_run_model", lambda *a, **k: (
+        seen.update(load_device=k["device"])
+        or (ConnectN(), uniform, Config(), {"steps": 7, "iteration": 3})))
     monkeypatch.setattr(strength, "evaluate_strength", lambda *a, **k: (
         seen.update(k) or {"results": [1, 0, -1], "positions": 5}))
     strength.main(["--run_id=r", "--games=3", "--sims=9", "--raw_policy=true",
-                   "--opponent=perfect", "--seed=2"])
+                   "--opponent=perfect", "--seed=2", "--device=cpu"])
     assert seen["num_games"] == 3 and seen["use_mcts"] is False
+    assert seen["load_device"] == seen["device"] == "cpu"
     assert seen["mcts_cfg"].simulations == 9
     assert (seen["opponent"], seen["seed"]) == ("perfect", 2)
     out = capsys.readouterr().out
