@@ -27,8 +27,9 @@ Phases (any failed check raises and exits non-zero):
    Dirichlet alpha 1.0, continuous auto-reset, 1024 games, 42 plies) with
    the trained weights in bf16, every wave a replay of the search's CUDA
    graph (the step kernel + the net); every wave must go through the
-   kernel and none through the plain version. Then the same generation
-   with every wave launched from the host (``graph=False``). Prints
+   kernel and none through the plain version. Then 12 plies (for time) of
+   the same generation with every wave launched from the host
+   (``graph=False``). Prints
    simulations/s of each, the kernel / net / rest split, one profiled ply
    of each and the sample checks.
 6. K2 vs its plain version, as phase 3.
@@ -130,11 +131,38 @@ Phases (any failed check raises and exits non-zero):
    simulations on the first 64 rows of each, the uniform control at 100
    simulations on 64 mate-in-2 rows (every decision equal to the CPU's);
    ``mate_in_1_labels`` / ``mate_in_2_labels`` on the first 64 / 16 rows
-   equal to the committed masks; ``play_vs_opponent`` against random and
-   greedy, 4 games of 16 plies at 100 simulations from the first two
+   equal to the committed masks; ``play_vs_opponent`` against the greedy
+   opponent (one, for time; the CPU tests play both), 4 games of 16 plies
+   at 100 simulations from the first two
    mate-in-1 rows (W/D/L and mean length equal to a replay of its moves on
    the CPU engine; at least one game decisive).
-22. The kernels' JSON line, the card's line, and the result line.
+22. Subtree reuse: ``MCTS.search_tree`` and ``MCTS.advance_root`` on the
+   card and on the CPU from 64 random c4-r5 positions, 250 simulations,
+   the dyadic evaluator and the same Gamma draws, 6 greedy plies: every
+   Tree field and ``free`` bit-equal after every search and advance. Then
+   c4-r5 self-play with ``mcts.reuse_tree`` on the card (the trained net in
+   bf16, B=1024, 4 plies): kept subtrees within keep_cap, visits carried
+   into every search after the first; sims/s and ms per wave beside phase
+   8's fresh-tree general search.
+23. The serving tier: ``python -m custom_alphazero_tpu_torch.serving`` as a
+   process on a run laid out from the committed c4-r5 net (bf16, batches
+   of 16, port 0), driven through ``ServingClient``: run-id; 256
+   single-state requests from 32 threads (after an untimed round of 32)
+   and one 1024-state batch request,
+   each move equal to the card's float32 forward wherever that forward's
+   two best probabilities are at least 1e-3 and 4 times the row's bf16
+   rounding apart (the disagreements at 1e-3 alone printed); the queue
+   round trip;
+   ``best-model/update`` after ``iteration_11660`` (phase 13's checkpoint;
+   the committed training state holds the same weights as iteration_11600)
+   appears, later replies following the new net; SIGINT, exit code 0. Then ``build_service`` in float32 in this process (TF32 off) within
+   1e-4 of the CPU's forward, fewer forwards than requests. Prints latency
+   p50 / p99, requests/s and the batch request's ms.
+24. The profiling tools through their mains: ``tools.profile`` (JAX's five
+   keys; a Chrome trace of one generation that names K1's kernel, its K1
+   kernel events beside the launch counter) and ``tools.inloop_bench 256
+   --iters=1`` (both lines).
+25. The kernels' JSON line, the card's line, and the result line.
 
 ``python3 chip_smoke.py --launch-shapes`` runs a tuning aid in place of the
 phases: K1 built with 1, 2, 4 and 8 games (warps) per block, each checked
@@ -187,6 +215,9 @@ BATCH = 1024
 SIMS = 250
 MAX_PLIES = 42
 GENERAL_PLIES = 4  # phase 8: plies of each self-play path
+# Phase 5's host-launched generation, for time: its rate only (the graph
+# run plays all 42 plies).
+HOST_PLIES = 12
 SNAPSHOT_LAUNCHES = 10
 # Waves whose mean kernel time is the kernel's "ms" (as in earlier runs), and
 # further ones for the fit of time against depth.
@@ -485,13 +516,14 @@ def searches_agree(env, states, evaluate, label: str, names) -> int:
     return k2_launches
 
 
-def general_selfplay(env, mcts_cfg, sp_cfg, evaluate, device) -> None:
+def general_selfplay(env, mcts_cfg, sp_cfg, evaluate, device) -> float:
     """Phase 8: ``GENERAL_PLIES`` plies of self-play through the general
     search and through the fused one, from one generator seed each: the
-    samples and stats must be identical."""
+    samples and stats must be identical. Returns the general path's
+    simulations per second."""
     from custom_alphazero_tpu_torch.runtime.selfplay import make_selfplay_fn
 
-    runs = {}
+    runs, rates = {}, {}
     for fused in (False, True):
         generate = make_selfplay_fn(env, mcts_cfg, sp_cfg, GENERAL_PLIES,
                                     device=device, fused=fused)
@@ -501,6 +533,7 @@ def general_selfplay(env, mcts_cfg, sp_cfg, evaluate, device) -> None:
         runs[fused] = generate(evaluate, gen, BATCH)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        rates[fused] = GENERAL_PLIES * BATCH * SIMS / wall
         log(f"self-play, {'fused' if fused else 'general'} path: "
             f"{GENERAL_PLIES} plies x {BATCH} games x {SIMS} sims in "
             f"{wall:.2f} s = {GENERAL_PLIES * BATCH * SIMS / wall:.0f} "
@@ -517,6 +550,7 @@ def general_selfplay(env, mcts_cfg, sp_cfg, evaluate, device) -> None:
           "self-play did not play every ply")
     log(f"general and fused self-play: identical samples "
         f"({GENERAL_PLIES * BATCH} rows) and stats")
+    return rates[False]
 
 
 def time_forward(evaluate, obs, repeats: int = 5):
@@ -1161,11 +1195,16 @@ def run_supervisor(args: list):
     return out, wall
 
 
-def supervisor_phase(run_copy: str) -> None:
+def supervisor_phase(run_copy: str) -> str:
     """Phase 13: the supervisor with run_c4_r5.sh's flags, resuming phase
-    12's run for one generation in a subprocess from the repo root."""
+    12's run for one generation in a subprocess from the repo root. Returns
+    a copy of its step-11,660 checkpoint without the ring (phase 23 serves
+    it as a newer net)."""
     from custom_alphazero_tpu_torch import paths
-    from custom_alphazero_tpu_torch.io.checkpoint import load_checkpoint
+    from custom_alphazero_tpu_torch.io.checkpoint import (
+        REPLAY_FILE,
+        load_checkpoint,
+    )
 
     flags = script_flags(RUN_C4_R5)
     check(flags[0] == "--supervise.liveness_timeout_minutes=10"
@@ -1182,12 +1221,17 @@ def supervisor_phase(run_copy: str) -> None:
             run_copy, "connect_n", "smoke"))  # checks the hash
         check(meta["steps"] == int(tree["steps"]) == 11660,
               f"supervisor: checkpoint at step {meta['steps']}")
+        newer = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"),
+                             "step_11660")
+        shutil.copytree(paths.training_path(run_copy, "connect_n", "smoke"),
+                        newer, ignore=shutil.ignore_patterns(REPLAY_FILE))
     finally:
         shutil.rmtree(run_copy, ignore_errors=True)
     log(f"supervisor: `python -m custom_alphazero_tpu_torch.runtime."
         f"supervisor` with run_c4_r5.sh's {len(flags)} flags + 3 overrides "
         f"exited 0 in {wall:.1f} s; steps 11640 -> 11660, checkpoint "
         f"restored with a matching hash")
+    return newer
 
 
 def labelled_choices(evaluate, device):
@@ -2066,7 +2110,9 @@ def chess_panel_phase(device) -> None:
         with np.load(MATE1) as data:
             rows = {k: data[k][:MATCH_GAMES // 2] for k in data}
         decisive = 0
-        for opponent in ("random", "greedy"):
+        # One opponent, for time (the greedy one: its scorer runs on the
+        # card); CPU tests play both.
+        for opponent in ("greedy",):
             (r, moves), ms = timed(lambda: played_moves(
                 lambda env: chess_strength.play_vs_opponent(
                     env, evaluate, opponent=opponent, games=MATCH_GAMES,
@@ -2153,6 +2199,468 @@ def replay_on_cpu(chess_cfg, rows, halves) -> dict:
     return {"wins": results.count(1), "draws": results.count(0),
             "losses": results.count(-1),
             "mean_game_plies": float(np.mean(lengths))}
+
+
+# ---- slice 8: subtree reuse, the serving tier, the profiling tools ---------
+
+REUSE_POSITIONS = 64   # phase 22, card vs CPU
+REUSE_PLIES = 6
+REUSE_SELFPLAY_PLIES = 4
+SERVE_REQUESTS = 256   # phase 23: single-state requests
+SERVE_THREADS = 32
+SERVE_BATCH = 1024     # one batch request
+SERVE_INFER_BATCH = 16
+SERVE_TIMEOUT_S = 120
+# Phase 23: a move of the bf16 service must equal the card's float32
+# forward's where that forward's two best probabilities are at least this
+# far apart, and at least BF16_MARGIN times the row's own bf16 rounding
+# (its largest bf16-vs-float32 probability difference at B=1024) apart:
+# the served batches have other shapes, hence other roundings, than any
+# reference (1e-3 alone failed on 1 of 256 rows against the bf16 forward,
+# H100 80GB HBM3). The float32 service is held to the CPU's within 1e-4.
+ARGMAX_GAP = 1e-3
+BF16_MARGIN = 4.0
+
+
+def state_to(state, device):
+    """A copy of an env state (a dataclass of tensors) on ``device``."""
+    import dataclasses
+
+    return type(state)(**{f.name: getattr(state, f.name).to(device)
+                          for f in dataclasses.fields(state)})
+
+
+def trees_differ(card, cpu, free_card, free_cpu) -> list:
+    """Names of the Tree fields (root state included) and of ``free`` whose
+    bits differ between a tree on the card and one on the CPU."""
+    import dataclasses
+
+    bad = [f"root_state.{name}"
+           for name in same_states(card.root_state, cpu.root_state)]
+    for f in dataclasses.fields(card):
+        x, y = getattr(card, f.name), getattr(cpu, f.name)
+        if f.name != "root_state" and x is not None and not same_bits(
+                x.cpu(), y):
+            bad.append(f.name)
+    if not same_bits(free_card.cpu(), free_cpu):
+        bad.append("free")
+    return bad
+
+
+def reuse_card_vs_cpu(env, states, sims: int, plies: int, gen):
+    """Greedy plies of ``search_tree`` and ``advance_root`` on the card and
+    on the CPU from the same positions, the dyadic evaluator and the same
+    Gamma draws (c4-r5 noise), at self-play's capacity (2 x sims, kept
+    subtrees cut to sims nodes). Every Tree field and ``free`` must be
+    bit-equal after every search and every advance. Returns (searches
+    compared, card ms per wave)."""
+    from custom_alphazero_tpu_torch.config import MCTSConfig
+    from custom_alphazero_tpu_torch.ops.rng import safe_gamma
+    from custom_alphazero_tpu_torch.search.mcts import MCTS
+
+    device = states.board.device
+    mcts = MCTS(env, MCTSConfig(simulations=sims, **NOISE))
+    capacity, keep_cap = 2 * sims, sims
+    evaluate = dyadic_evaluate(env.num_actions)
+    bsz = states.board.shape[0]
+    cpu_states = state_to(states, "cpu")
+    trees = {"card": mcts.init_tree(states, capacity),
+             "cpu": mcts.init_tree(cpu_states, capacity)}
+    free = {"card": torch.ones(bsz, dtype=torch.int32, device=device),
+            "cpu": torch.ones(bsz, dtype=torch.int32)}
+    searched, wave_ms = 0, []
+    for ply in range(plies):
+        gamma = safe_gamma(gen, NOISE["dirichlet_alpha"],
+                           (sims, bsz, env.num_actions), device)
+        for where, g in (("card", gamma), ("cpu", gamma.cpu())):
+            t0 = time.perf_counter()
+            trees[where], free[where] = mcts.search_tree(
+                trees[where], free[where], evaluate, None, sims, gamma=g)
+            if where == "card":
+                torch.cuda.synchronize()
+                wave_ms.append((time.perf_counter() - t0) * 1e3 / sims)
+        bad = trees_differ(trees["card"], trees["cpu"], free["card"],
+                           free["cpu"])
+        check(not bad, f"reuse, ply {ply}: search_tree card vs CPU differ "
+              f"in {bad}")
+        searched += 1
+        actions = mcts.root_child_visits(trees["card"]).argmax(1)
+        states, _ = env.step(states, actions)
+        cpu_states, _ = env.step(cpu_states, actions.cpu())
+        trees["card"], free["card"] = mcts.advance_root(
+            trees["card"], actions, keep_cap, states)
+        trees["cpu"], free["cpu"] = mcts.advance_root(
+            trees["cpu"], actions.cpu(), keep_cap, cpu_states)
+        bad = trees_differ(trees["card"], trees["cpu"], free["card"],
+                           free["cpu"])
+        check(not bad, f"reuse, ply {ply}: advance_root card vs CPU differ "
+              f"in {bad}")
+        check(int(free["card"].max()) <= keep_cap, "kept more than keep_cap")
+    return searched, sum(wave_ms) / len(wave_ms)
+
+
+def reuse_phase(env, mcts_cfg, sp_cfg, evaluate, general_sims_s, gen,
+                device) -> None:
+    """Phase 22: reuse card vs CPU, then c4-r5 reuse self-play on the card
+    with the trained bf16 net."""
+    import dataclasses
+
+    from custom_alphazero_tpu_torch.runtime.selfplay import make_selfplay_fn
+    from custom_alphazero_tpu_torch.search.mcts import MCTS
+
+    states = random_positions(env, REUSE_POSITIONS, 20, gen, device)
+    t0 = time.perf_counter()
+    searched, card_wave_ms = reuse_card_vs_cpu(env, states, SIMS,
+                                               REUSE_PLIES, gen)
+    log(f"reuse, card vs CPU: {REUSE_POSITIONS} positions, {SIMS} sims, "
+        f"{searched} greedy plies: every Tree field and free bit-equal "
+        f"after each search and advance; card {card_wave_ms:.2f} ms per "
+        f"wave at B={REUSE_POSITIONS} ({time.perf_counter() - t0:.1f} s)")
+
+    # Self-play: the carried visits and the kept sizes, read through the
+    # two reuse methods, wrapped for this run only.
+    reuse_cfg = dataclasses.replace(mcts_cfg, reuse_tree=True)
+    keep_cap = max(reuse_cfg.max_nodes, 2 * SIMS) - SIMS
+    carried, kept = [], []
+    search_tree, advance_root = MCTS.search_tree, MCTS.advance_root
+
+    def counted_search(self, tree, free, *args, **kwargs):
+        carried.append(self.root_child_visits(tree).sum(-1).float()
+                       .mean().item())
+        return search_tree(self, tree, free, *args, **kwargs)
+
+    def counted_advance(self, *args, **kwargs):
+        tree, free = advance_root(self, *args, **kwargs)
+        kept.append(int(free.max()))
+        return tree, free
+
+    MCTS.search_tree, MCTS.advance_root = counted_search, counted_advance
+    try:
+        generate = make_selfplay_fn(env, reuse_cfg, sp_cfg,
+                                    REUSE_SELFPLAY_PLIES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples, stats = generate(evaluate, gen, BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        MCTS.search_tree, MCTS.advance_root = search_tree, advance_root
+    waves = REUSE_SELFPLAY_PLIES * SIMS
+    check(len(kept) == REUSE_SELFPLAY_PLIES and max(kept) <= keep_cap,
+          f"reuse self-play kept {kept}, keep_cap {keep_cap}")
+    check(carried[0] == 0.0 and all(c > 0 for c in carried[1:]),
+          f"reuse self-play carried no visits into a search: {carried}")
+    check(int(stats.plies) == waves * BATCH // SIMS,
+          "reuse self-play did not play every ply")
+    pi_err = (samples.policy.sum(-1) - 1.0).abs().max().item()
+    check(pi_err < 1e-5, f"reuse pi rows do not sum to 1: {pi_err}")
+    log(f"reuse self-play (c4-r5 bf16, B={BATCH}, {SIMS} sims, "
+        f"{REUSE_SELFPLAY_PLIES} plies): {wall:.2f} s = "
+        f"{waves * BATCH / wall:.0f} sims/s, {1e3 * wall / waves:.2f} ms "
+        f"per wave (phase 8's fresh-tree general search: "
+        f"{general_sims_s:.0f} sims/s, {1e3 * BATCH / general_sims_s:.2f} "
+        f"ms per wave); mean root-edge visits carried into each search "
+        f"{[round(c, 1) for c in carried]}; kept nodes (max) {kept}, "
+        f"keep_cap {keep_cap}")
+
+
+def read_line(stream, deadline: float, want: str) -> list:
+    """Lines of ``stream`` up to and including the first that starts with
+    ``want``; raises past ``deadline`` (a time.monotonic value)."""
+    import queue
+    import threading
+
+    lines, box = [], queue.Queue()
+
+    def reader():
+        for line in stream:
+            box.put(line)
+            if line.startswith(want):
+                break
+        box.put(None)
+
+    threading.Thread(target=reader, daemon=True).start()
+    while True:
+        line = box.get(timeout=max(deadline - time.monotonic(), 0.01))
+        check(line is not None, f"stream ended before {want!r}: {lines}")
+        lines.append(line.rstrip("\n"))
+        if line.startswith(want):
+            return lines
+
+
+def top_two_gap(probs: torch.Tensor) -> torch.Tensor:
+    top = probs.topk(2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+def argmax_disagreements(got, want, margin=None) -> tuple:
+    """(moves that differ where the reference's top two are at least
+    ARGMAX_GAP and ``margin`` (per row) apart, the rows closer than
+    that)."""
+    got, want = torch.as_tensor(got), torch.as_tensor(want)
+    need = torch.full((want.shape[0],), ARGMAX_GAP)
+    if margin is not None:
+        need = torch.maximum(need, margin)
+    wide = top_two_gap(want) >= need
+    differ = got.argmax(-1) != want.argmax(-1)
+    return (int((differ & wide).sum()),
+            torch.nonzero(~wide)[:, 0].tolist())
+
+
+def serving_phase(env, gen, device, newer: str) -> None:
+    """Phase 23: ``python -m custom_alphazero_tpu_torch.serving`` on a run
+    laid out from the committed c4-r5 net, driven through ServingClient,
+    with ``newer`` (phase 13's step-11,660 checkpoint) appearing as a newer
+    lineage; then ``build_service`` in float32 in this process."""
+    import threading
+
+    import numpy as np
+
+    from custom_alphazero_tpu_torch.config import (
+        Config,
+        ModelConfig,
+        apply_overrides,
+    )
+    from custom_alphazero_tpu_torch.io.checkpoint import load_jax_checkpoint
+    from custom_alphazero_tpu_torch.models.convert import from_jax_variables
+    from custom_alphazero_tpu_torch.runtime.evaluate import make_evaluate_fn
+    from custom_alphazero_tpu_torch.serving import ServingClient
+    from custom_alphazero_tpu_torch.serving.__main__ import build_service
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def forward(path, where, dtype="float32"):
+        params, stats, _ = load_jax_checkpoint(path)
+        return make_evaluate_fn(from_jax_variables(
+            params, stats, 7, ModelConfig(compute_dtype=dtype),
+            device=where))
+
+    obs = env.observe(random_positions(env, SERVE_BATCH, 30, gen, device))
+    obs_np = obs.cpu().numpy()
+    fp32_11600 = forward(CHECKPOINT, device)(obs)[0].cpu()
+    bf16_11600 = forward(CHECKPOINT, device, "bfloat16")(obs)[0].cpu()
+    fp32_newer = forward(newer, device)(obs)[0].cpu()
+    bf16_newer = forward(newer, device, "bfloat16")(obs)[0].cpu()
+    margin = BF16_MARGIN * (bf16_11600 - fp32_11600).abs().max(-1).values
+    margin_newer = BF16_MARGIN * (bf16_newer - fp32_newer).abs().max(
+        -1).values
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    evaluation = os.path.join(root, "connect_n", "smoke-serve", "evaluation")
+    shutil.copytree(CHECKPOINT, os.path.join(evaluation, "iteration_11600"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "custom_alphazero_tpu_torch.serving",
+         f"--run.results_dir={root}", "--run.run_id=smoke-serve",
+         "--serving.host=127.0.0.1", "--serving.port=0",
+         f"--serving.inference_batch_size={SERVE_INFER_BATCH}"],
+        cwd=REPO, stdout=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=REPO + os.pathsep
+                 + os.environ.get("PYTHONPATH", "")))
+    try:
+        t0 = time.perf_counter()
+        lines = read_line(proc.stdout, time.monotonic() + SERVE_TIMEOUT_S,
+                          "Serving run ")
+        port = int(lines[-1].rsplit(":", 1)[1].split("/")[0])
+        check(any("Serving best model from iteration 11600" in line
+                  for line in lines), f"serving started with {lines}")
+        log(f"serving: {lines[-1]} ({time.perf_counter() - t0:.1f} s to "
+            f"start)")
+        client = ServingClient("127.0.0.1", port, timeout=60.0)
+        check(client.get_run_id() == "smoke-serve", "run-id")
+
+        # Single-state requests from many threads at once, after one
+        # untimed round (the net's first forwards at each batch size).
+        replies, latency = [None] * SERVE_REQUESTS, [0.0] * SERVE_REQUESTS
+
+        def worker(k, count):
+            for i in range(k, count, SERVE_THREADS):
+                t = time.perf_counter()
+                replies[i] = client.infer_sample(obs_np[i])
+                latency[i] = (time.perf_counter() - t) * 1e3
+
+        for count in (SERVE_THREADS, SERVE_REQUESTS):
+            threads = [threading.Thread(target=worker, args=(k, count))
+                       for k in range(SERVE_THREADS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            wall = time.perf_counter() - t0
+        probs = np.stack([p for p, _ in replies])
+        check(probs.shape == (SERVE_REQUESTS, 7), f"replies {probs.shape}")
+        n = SERVE_REQUESTS
+        bad, close = argmax_disagreements(probs, fp32_11600[:n],
+                                          margin[:n])
+        plain_bad = [argmax_disagreements(probs, ref[:n])[0]
+                     for ref in (fp32_11600, bf16_11600)]
+        p50, p99 = np.percentile(latency, [50, 99])
+        log(f"serving: {n} single-state requests from {SERVE_THREADS} "
+            f"threads in {wall:.2f} s = {n / wall:.1f} requests/s; latency "
+            f"p50 {p50:.2f} ms, p99 {p99:.2f} ms; moves equal to the card's "
+            f"float32 forward but for {len(close)} rows closer than "
+            f"max({ARGMAX_GAP}, {BF16_MARGIN:g} x the row's bf16 rounding, "
+            f"median {float(margin[:n].median()):.4f}); where the top two "
+            f"are {ARGMAX_GAP} apart, {plain_bad[0]} moves differ from the "
+            f"float32 forward and {plain_bad[1]} from the bf16 one at "
+            f"B={SERVE_BATCH}")
+        check(bad == 0, f"{bad} served moves differ from the card's "
+              f"float32 forward")
+
+        t0 = time.perf_counter()
+        out = client._call("inference", {"states": obs_np.tolist()})
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        batch_probs = np.asarray(out["probabilities"], np.float32)
+        check(batch_probs.shape == (SERVE_BATCH, 7)
+              and len(out["values"]) == SERVE_BATCH
+              and np.isfinite(batch_probs).all(), "batch reply")
+        bad, close = argmax_disagreements(batch_probs, fp32_11600, margin)
+        same_shape = float(np.abs(batch_probs - bf16_11600.numpy()).max())
+        log(f"serving: one {SERVE_BATCH}-state batch request in "
+            f"{batch_ms:.1f} ms; {len(close)} rows too close to hold; "
+            f"max-abs against this process's bf16 forward of the same "
+            f"batch {same_shape:.2e}")
+        check(bad == 0, f"{bad} batch moves differ from the card's float32 "
+              f"forward")
+
+        queue_in = (obs_np[:8], fp32_11600[:8].numpy(),
+                    np.linspace(-1, 1, 8).astype(np.float32))
+        check(client.append_queue(*queue_in) == 8
+              and client.get_queue_size() == 8, "queue append / size")
+        for name, got, want in zip(("states", "policies", "values"),
+                                   client.retrieve_queue(), queue_in):
+            check(np.array_equal(got, want), f"queue round trip: {name}")
+        check(client.get_queue_size() == 0, "queue not drained")
+
+        # A newer lineage checkpoint appears: the update loads it.
+        shutil.copytree(newer, os.path.join(evaluation, "iteration_11660"))
+        check(client.update_best_model() is True, "best-model/update")
+        probe = 64
+        later = np.stack([client.infer_sample(obs_np[i])[0]
+                          for i in range(probe)])
+        bad, _ = argmax_disagreements(later, fp32_newer[:probe],
+                                      margin_newer[:probe])
+        check(bad == 0, f"{bad} moves after the update differ from step "
+              f"11,660's float32 forward")
+        nets_differ = int((fp32_newer[:probe].argmax(-1)
+                           != fp32_11600[:probe].argmax(-1)).sum())
+        moved = float(np.abs(later - probs[:probe]).max())
+        check(moved > 1e-3, "the replies did not change with the update")
+        log(f"serving: best-model/update to iteration_11660, later replies "
+            f"follow it ({nets_differ} of {probe} moves differ between the "
+            f"two nets; max probability change {moved:.3f})")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            code = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            code = None
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(newer), ignore_errors=True)
+    check(code == 0, f"the serving process exited with {code}")
+    log("serving: process stopped with SIGINT, exit code 0")
+
+    # Float32 in process, TF32 off, against the CPU's forward.
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    shutil.copytree(CHECKPOINT, os.path.join(
+        root, "connect_n", "smoke-fp32", "evaluation", "iteration_11600"))
+    cfg = apply_overrides(Config(), {
+        "run.results_dir": root, "run.run_id": "smoke-fp32",
+        "model.compute_dtype": "float32"})
+    service = build_service(cfg, host="127.0.0.1", port=0,
+                            batch_size=SERVE_INFER_BATCH, timeout=0.5)
+    service.start()
+    try:
+        client = ServingClient("127.0.0.1", service.port, timeout=60.0)
+        count = 128
+        got = [None] * count
+
+        def worker(k):
+            for i in range(k, count, SERVE_THREADS):
+                got[i] = client.infer_sample(obs_np[i])
+
+        threads = [threading.Thread(target=worker, args=(k,))
+                   for k in range(SERVE_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        forwards = service.batcher._generation
+    finally:
+        service.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    cpu_probs, cpu_values = forward(CHECKPOINT, "cpu")(
+        torch.from_numpy(obs_np[:count]))
+    err = max(float(np.abs(np.stack([p for p, _ in got])
+                           - cpu_probs.numpy()).max()),
+              float(np.abs(np.asarray([v for _, v in got])
+                           - cpu_values.numpy()).max()))
+    check(err < 1e-4, f"served float32 differs from the CPU by {err}")
+    check(forwards < count, f"{forwards} forwards for {count} requests: "
+          "no micro-batching")
+    log(f"serving, float32 in process: {count} requests in {forwards} "
+        f"forwards, max-abs vs the CPU forward {err:.2e}")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+
+
+def profiling_phase(device) -> int:
+    """Phase 24: the profiling tools through their mains on the card;
+    returns K1's launches there."""
+    from custom_alphazero_tpu_torch.ops import fused_mcts_v2
+    from custom_alphazero_tpu_torch.tools import inloop_bench, profile
+
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    fused_mcts_v2.wave_step.launches = 0
+    fused_mcts_v2.wave_step_reference.calls = 0
+    t0 = time.perf_counter()
+    code, lines = captured_stdout(
+        lambda: profile.main([f"--trace-dir={trace_dir}"]))
+    seconds = time.perf_counter() - t0
+    launches = fused_mcts_v2.wave_step.launches
+    check(code == 0, f"tools.profile exited {code}")
+    keys = [line.split(":")[0] for line in lines[:5]]
+    check(keys == ["selfplay_s", "train_step_s", "arena_s", "sims_per_s",
+                   "samples_per_s"], f"tools.profile printed {lines}")
+    path = os.path.join(trace_dir, profile.TRACE_FILE)
+    check(os.path.exists(path), f"no trace at {path}")
+    size = os.path.getsize(path)
+    with open(path) as fp:
+        text = fp.read()
+    # Kernel events carry the kernel's own name; the host's launch calls
+    # are named after the runtime call.
+    in_trace = len(re.findall(r'"name":\s*"[^"]*wave_kernel', text))
+    graph_launches = len(re.findall(r'"name":\s*"cudaGraphLaunch"', text))
+    events = text.count('"ph":')
+    del text
+    check(in_trace > 0, "the trace does not name K1's kernel")
+    check(fused_mcts_v2.wave_step_reference.calls == 0,
+          "the plain version ran on the card")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    # The traced generation: 42 plies x (64 + 1) waves, replayed.
+    traced = MAX_PLIES * 65
+    log(f"tools.profile main: {seconds:.1f} s, {events} trace events "
+        f"({size / 1e6:.1f} MB); K1 launches over the call {launches} (one "
+        f"traced generation: {traced}); K1 kernels in the trace {in_trace}, "
+        f"cudaGraphLaunch calls {graph_launches}"
+        + ("" if in_trace >= traced else
+           f" (the profiler saw {traced - in_trace} of the traced "
+           "generation's K1 launches not as kernel events)"))
+
+    t0 = time.perf_counter()
+    before = fused_mcts_v2.wave_step.launches
+    code, lines = captured_stdout(
+        lambda: inloop_bench.main(["256", "--iters=1"]))
+    check(code == 0 and [line.split(":")[0] for line in lines
+                         if line.startswith("continuous=")] == [
+        "continuous=False B=256", "continuous=True B=256"],
+        f"inloop_bench printed {lines}")
+    launches += fused_mcts_v2.wave_step.launches - before
+    log(f"tools.inloop_bench main: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def launch_shapes(device) -> None:
@@ -2265,13 +2773,15 @@ def main() -> int:
                             exclude_draws=False)
     # The default path replays the search's CUDA graph; graph=False launches
     # every wave from the host; the first run is the main path's.
+    plies_of = {"graph": MAX_PLIES, "host launches": HOST_PLIES}
     generators = {
         "graph": make_selfplay_fn(env, mcts_cfg, sp_cfg, MAX_PLIES),
-        "host launches": make_selfplay_fn(env, mcts_cfg, sp_cfg, MAX_PLIES,
+        "host launches": make_selfplay_fn(env, mcts_cfg, sp_cfg, HOST_PLIES,
                                           graph=False),
     }
-    forwards = MAX_PLIES * SIMS
     for turn, label in enumerate(("graph", "host launches")):
+        plies = plies_of[label]
+        forwards = plies * SIMS
         fused_mcts_v2.wave_step.launches = 0
         fused_mcts_v2.wave_step_reference.calls = 0
         torch.cuda.synchronize()
@@ -2282,16 +2792,16 @@ def main() -> int:
         turn_launches = fused_mcts_v2.wave_step.launches
         plain_calls = fused_mcts_v2.wave_step_reference.calls
         # The first graph run also warms up and captures.
-        expected = MAX_PLIES * (SIMS + 1) + (
+        expected = plies * (SIMS + 1) + (
             fused_mcts_v2.WARMUP_WAVES if turn == 0 else 0)
         check(turn_launches == expected, f"{label}: kernel launched "
               f"{turn_launches} times, expected {expected}")
         check(plain_calls == 0, f"plain version ran {plain_calls} times")
         kernel_s = turn_launches * kernel_ms / 1e3
         net_s = forwards * net_ms / 1e3
-        log(f"self-play, {label}: {MAX_PLIES} plies x {BATCH} games x "
+        log(f"self-play, {label}: {plies} plies x {BATCH} games x "
             f"{SIMS} sims in {wall:.2f} s = "
-            f"{MAX_PLIES * BATCH * SIMS / wall:.0f} sims/s; {turn_launches} "
+            f"{plies * BATCH * SIMS / wall:.0f} sims/s; {turn_launches} "
             f"kernel launches, {plain_calls} plain-version calls")
         log(f"  per wave {1e3 * wall / turn_launches:.3f} ms wall; split by "
             f"standalone device times x counts: kernel {kernel_s:.2f} s "
@@ -2341,7 +2851,8 @@ def main() -> int:
                                   fused)
 
     # ---- 8. general-path self-play ------------------------------------------
-    general_selfplay(env, mcts_cfg, sp_cfg, eval_bf16, device)
+    general_sims_s = general_selfplay(env, mcts_cfg, sp_cfg, eval_bf16,
+                                      device)
     torch.backends.cudnn.deterministic = False
 
     # ---- 9. codec and replay ring -------------------------------------------
@@ -2358,7 +2869,7 @@ def main() -> int:
     learner_launches, run_copy = learner_phase(device)
 
     # ---- 13. the supervisor with run_c4_r5.sh's flags -----------------------
-    supervisor_phase(run_copy)
+    step_11660 = supervisor_phase(run_copy)
 
     # ---- 14. the strength tool ----------------------------------------------
     strength_phase(device)
@@ -2384,7 +2895,16 @@ def main() -> int:
     # ---- 21. the chess panel ------------------------------------------------
     chess_panel_phase(device)
 
-    # ---- 22. result lines ---------------------------------------------------
+    # ---- 22. subtree reuse --------------------------------------------------
+    reuse_phase(env, mcts_cfg, sp_cfg, eval_bf16, general_sims_s, gen, device)
+
+    # ---- 23. the serving tier -----------------------------------------------
+    serving_phase(env, gen, device, step_11660)
+
+    # ---- 24. the profiling tools --------------------------------------------
+    profiling_launches = profiling_phase(device)
+
+    # ---- 25. result lines ---------------------------------------------------
     k2_err, k2_ms, k2_plain_ms, k2_bound_ms, k2_carry_bound_ms, k2_fit = k2
     check(k2_launches > 0 and k2_err == 0.0, "K2 did not run or disagreed")
     kernels = [{
@@ -2396,6 +2916,7 @@ def main() -> int:
         "launches_arena": arena_launches,
         "launches_learner": learner_launches,
         "launches_strength_tool": battery_launches,
+        "launches_profiling_tools": profiling_launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -122,7 +122,6 @@ def _check_ported(cfg: Config) -> None:
          "Multi-GPU"),
         (cfg.mesh.model_parallelism > 1, "mesh.model_parallelism > 1",
          "Multi-GPU"),
-        (cfg.mcts.reuse_tree, "mcts.reuse_tree", "Subtree reuse"),
     )
     for is_set, setting, item in not_ported:
         if is_set:

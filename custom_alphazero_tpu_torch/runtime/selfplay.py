@@ -19,10 +19,16 @@ is the target, with no sampling. Sample semantics are the JAX ones:
 
 Moves are sampled from pi with the caller's ``torch.Generator`` (greedy rows
 are one-hot, so sampling them is the argmax).
+
+With ``mcts.reuse_tree`` each game's tree is carried across moves, as the
+reference does: ``MCTS.search_tree`` continues on it, ``MCTS.advance_root``
+re-roots it at the played child (kept subtrees truncated to capacity minus
+simulations), and in continuous mode a finished game's tree starts afresh.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
@@ -37,7 +43,7 @@ from custom_alphazero_tpu_torch.ops import fused_mcts_v2
 from custom_alphazero_tpu_torch.replay.codec import PackedObs
 from custom_alphazero_tpu_torch.runtime.evaluate import EvaluateFn
 from custom_alphazero_tpu_torch.search.gumbel import GumbelMCTS
-from custom_alphazero_tpu_torch.search.mcts import MCTS
+from custom_alphazero_tpu_torch.search.mcts import MCTS, Tree
 
 
 class SelfPlayBatch(NamedTuple):
@@ -73,29 +79,47 @@ def make_selfplay_fn(env: Env, mcts_cfg: MCTSConfig,
     """Build ``generate(evaluate_fn, generator, batch_size)``.
 
     fused: search with the fused v2 kernel; None (the default) does so
-    whenever ``fused_mcts_v2.supports`` the env and config and Gumbel
-    search is off, and otherwise runs the general ``MCTS.search`` (or the
-    Gumbel search). Gumbel search is never fused (ValueError). Subtree
-    reuse is not ported and raises NotImplementedError.
+    whenever ``fused_mcts_v2.supports`` the env and config and neither
+    Gumbel search nor subtree reuse is on, and otherwise runs the general
+    ``MCTS.search`` (or the Gumbel search, or ``MCTS.search_tree``).
+    Gumbel search and subtree reuse are never fused, and never go together
+    (ValueError).
     graph: the fused search's ``graph`` argument: None (the default)
     replays one captured CUDA graph per wave on the card; False launches
     every wave from the host, for an evaluator that cannot be captured.
     obs_codec: a replay/codec.py ``BitplaneCodec``; when given, each ply's
     observations are bit-packed as they are recorded and ``SelfPlayBatch.obs``
     is the ``PackedObs``."""
-    if mcts_cfg.reuse_tree:
-        raise NotImplementedError(
-            "mcts.reuse_tree is not ported yet (ROADMAP.md queue 1, "
-            "'Subtree reuse')"
-        )
+    reuse = mcts_cfg.reuse_tree
     gumbel = mcts_cfg.use_gumbel
     if fused is None:
-        fused = not gumbel and fused_mcts_v2.supports(env, mcts_cfg)
+        fused = (not gumbel and not reuse
+                 and fused_mcts_v2.supports(env, mcts_cfg))
     if gumbel and fused:
         raise ValueError("Gumbel search uses fresh general-search trees: "
                          "it has no fused kernel")
+    if reuse and fused:
+        raise ValueError("the fused search builds a fresh tree per move: "
+                         "it cannot carry subtrees (mcts.reuse_tree)")
+    if reuse and gumbel:
+        raise ValueError("Gumbel search uses fresh trees: it has no subtree "
+                         "reuse")
     device = resolve_device(device)
     sims = mcts_cfg.simulations
+    mcts = MCTS(env, mcts_cfg)
+    if reuse and mcts_cfg.topk_actions != -1 and (
+            mcts.prior_width(sims) < env.num_actions):
+        # Reuse trees are full width; a config that would compress its
+        # priors must acknowledge the memory with topk_actions=-1.
+        raise ValueError(
+            "mcts.reuse_tree uses full-width priors but this config "
+            "would compress (topk/auto on a large action space); set "
+            "mcts.topk_actions=-1 to acknowledge the memory cost"
+        )
+    # Capacity for the carried and the new nodes; a kept subtree is cut to
+    # keep_cap nodes so that a search's new nodes always fit.
+    tree_capacity = max(mcts_cfg.max_nodes, 2 * sims)
+    keep_cap = tree_capacity - sims
     if gumbel:
         gumbel_search = GumbelMCTS(env, mcts_cfg)
     elif fused:
@@ -106,8 +130,6 @@ def make_selfplay_fn(env: Env, mcts_cfg: MCTSConfig,
             return fused_search.search_root_stats(
                 states, evaluate_fn, generator, sims, graph=graph)[0]
     else:
-        mcts = MCTS(env, mcts_cfg)
-
         def search_visits(states, evaluate_fn, generator):
             tree = mcts.search(states, evaluate_fn, generator, sims)
             return mcts.root_child_visits(tree)
@@ -118,6 +140,11 @@ def make_selfplay_fn(env: Env, mcts_cfg: MCTSConfig,
                  batch_size: int):
         fresh = env.init(batch_size, device)
         states = fresh
+        if reuse:
+            # Two copies: search_tree updates its tree in place.
+            fresh_tree = mcts.init_tree(fresh, tree_capacity)
+            tree = mcts.init_tree(fresh, tree_capacity)
+            free = torch.ones(batch_size, dtype=torch.int32, device=device)
         obs_seq, pi_seq, active_seq, reward_seq, done_seq, mv_seq = (
             [], [], [], [], [], []
         )
@@ -131,14 +158,27 @@ def make_selfplay_fn(env: Env, mcts_cfg: MCTSConfig,
                 _, actions, pi = gumbel_search.search_select(
                     states, evaluate_fn, generator, sims)
             else:
+                if reuse:
+                    tree, free = mcts.search_tree(tree, free, evaluate_fn,
+                                                  generator, sims)
+                    visits = mcts.root_child_visits(tree)
+                else:
+                    visits = search_visits(states, evaluate_fn, generator)
                 actions, pi = _sample_move(
-                    search_visits(states, evaluate_fn, generator).float(),
-                    mv >= mcts_cfg.greedy_from_move, num_actions, generator)
+                    visits.float(), mv >= mcts_cfg.greedy_from_move,
+                    num_actions, generator)
 
             next_states, rewards = env.step(states, actions)
+            if reuse:
+                tree, free = mcts.advance_root(tree, actions, keep_cap,
+                                               next_states)
             done = active & env.is_terminal(next_states)
             if sp_cfg.continuous:
                 next_states = fresh.where(done, next_states)
+                if reuse:
+                    # A finished game's tree starts afresh.
+                    tree = _reset_trees(fresh_tree, tree, done)
+                    free = torch.where(done, 1, free).to(torch.int32)
             states = next_states
             obs_seq.append(obs_codec.encode(obs) if obs_codec is not None
                            else obs)
@@ -170,6 +210,19 @@ def make_selfplay_fn(env: Env, mcts_cfg: MCTSConfig,
         return batch, stats
 
     return generate
+
+
+def _reset_trees(fresh: Tree, tree: Tree, done: torch.Tensor) -> Tree:
+    """``fresh``'s trees where ``done`` (B,), else ``tree``'s."""
+
+    def pick(a, b):
+        return torch.where(done.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+    return Tree(root_state=fresh.root_state.where(done, tree.root_state),
+                **{f.name: pick(getattr(fresh, f.name), getattr(tree, f.name))
+                   for f in dataclasses.fields(Tree)
+                   if f.name != "root_state"
+                   and getattr(tree, f.name) is not None})
 
 
 def _sample_move(visits, greedy, num_actions, generator):

@@ -19,6 +19,10 @@ to it field by field (tests/test_torch_port_mcts.py):
   root keeps its full prior row and full-width edge stats, maintained by the
   backup.
 
+``MCTS.search_tree`` and ``MCTS.advance_root`` carry the trees across
+moves (subtree reuse, full width only): each game's new nodes go to its own
+``free`` cursor, and a re-rooted tree keeps its most visited nodes.
+
 Where JAX contracts one-hot einsums to avoid gathers and scatters on the
 TPU, the port indexes: each game's children are kept in a (B, N, K) table
 of child slots, written when a node is created, so an edge's statistics
@@ -471,6 +475,200 @@ class MCTS:
                 tree.root_value_sum[batch, root_a] += torch.where(
                     root_hit, root_val, 0.0)
         return tree
+
+    # -- subtree reuse across moves ------------------------------------------
+    #
+    # ``advance_root`` re-roots each game's searched tree at its played
+    # child, compacting the kept subtree into the low slots (ranked by edge
+    # visits, truncated to ``keep_cap``), and ``search_tree`` runs more
+    # simulations on a carried tree, each game's next node going to its own
+    # ``free`` cursor. The kept root arrives expanded, so every simulation
+    # backs up. The visit ranking is parent-closed (an edge has at least the
+    # visits of any edge below it, and stable sorting keeps the older slot,
+    # the parent, first on a tie), so truncation leaves no dangling node.
+    # Full-width priors only, as in JAX.
+
+    @staticmethod
+    def _check_full_width(tree: Tree) -> None:
+        if tree.prior_acts is not None:
+            raise ValueError("subtree reuse requires full-width priors "
+                             "(topk_actions=-1)")
+
+    def advance_root(self, tree: Tree, actions: torch.Tensor, keep_cap: int,
+                     new_root_states):
+        """Re-root each game's tree at the child reached by ``actions``.
+
+        new_root_states: the stepped root states.
+        Returns (tree, free): a new tree, and (B,) int32 occupied low slots.
+        A game whose played child has no node (a zero-visit action) gets a
+        fresh, unexpanded root, as the reference's never-evaluated child."""
+        self._check_full_width(tree)
+        env = self.env
+        bsz, n = tree.parent.shape
+        dev = tree.parent.device
+        idx = torch.arange(n, device=dev)[None, :]
+
+        # The played child c* of the root (-1 where none exists).
+        match = (tree.parent == 0) & (tree.parent_action == actions[:, None])
+        cstar = torch.where(match, idx, UNVISITED).max(1).values
+
+        # Descendants of c*, c* included, by ancestor pointer doubling.
+        anc = torch.where(tree.parent < 0, idx, tree.parent.long())
+        desc = idx == cstar[:, None]
+        hops = 1
+        while hops < n:
+            desc = desc | desc.gather(1, anc)
+            anc = anc.gather(1, anc)
+            hops *= 2
+
+        # Rank the descendants by edge visits, most first; the stable sort
+        # keeps slot order on ties. The rest sorts to the back.
+        key = torch.where(desc, -tree.visits.to(torch.int32),
+                          torch.iinfo(torch.int32).max)
+        order = torch.argsort(key, dim=1, stable=True)  # rank -> old slot
+        rank = torch.empty_like(order).scatter_(1, order,
+                                                idx.expand(bsz, n))
+        keep = torch.clamp(desc.sum(1), max=keep_cap).to(torch.int32)
+        kept = idx < keep[:, None]  # (B, N) in the rank frame
+
+        def permute(arr, fill):
+            ix = order if arr.dim() == 2 else order[:, :, None].expand(
+                -1, -1, arr.shape[2])
+            cond = kept if arr.dim() == 2 else kept[:, :, None]
+            return torch.where(cond, arr.gather(1, ix),
+                               torch.tensor(fill, dtype=arr.dtype,
+                                            device=dev))
+
+        # Parent pointers in the rank frame; the new root has none.
+        parent_old = permute(tree.parent, 0).long()
+        parent = torch.where(kept, rank.gather(1, parent_old), NO_PARENT)
+        parent = parent.to(torch.int32)
+        parent[:, 0] = NO_PARENT
+
+        empty = keep == 0  # nothing carried: a fresh root in slot 0
+        visits = permute(tree.visits, 0.0)
+        value_sum = permute(tree.value_sum, 0.0)
+        # The edge into the new root went with its parent.
+        visits[:, 0] = 0.0
+        value_sum[:, 0] = 0.0
+        is_terminal = permute(tree.is_terminal, False)
+        is_terminal[:, 0] = torch.where(
+            empty, env.is_terminal(new_root_states), is_terminal[:, 0])
+        reward = permute(tree.reward, 0.0)
+        reward[:, 0] = torch.where(
+            empty, -env.terminal_value(new_root_states), reward[:, 0])
+        free = keep.clamp_min(1)
+        new_tree = Tree(
+            root_state=new_root_states,
+            parent=parent,
+            parent_action=permute(tree.parent_action, 0),
+            visits=visits,
+            value_sum=value_sum,
+            prior=permute(tree.prior, 0.0),
+            expanded=permute(tree.expanded, False),
+            is_terminal=is_terminal,
+            reward=reward,
+            value_evaluated=permute(tree.value_evaluated, 0.0),
+            node_count=free.clone(),
+        )
+        return new_tree, free
+
+    def _child_table(self, tree: Tree) -> torch.Tensor:
+        """(B, N, A) int32 child slot of each (node, action) edge, -1 where
+        none, rebuilt from ``parent`` / ``parent_action``."""
+        bsz, n = tree.parent.shape
+        dev = tree.parent.device
+        table = torch.full((bsz, n + 1, self.env.num_actions), UNVISITED,
+                           dtype=torch.int32, device=dev)
+        # Unlinked slots write to a spare row.
+        rows = torch.where(tree.parent >= 0, tree.parent.long(), n)
+        table[torch.arange(bsz, device=dev)[:, None], rows,
+              tree.parent_action.long()] = torch.arange(
+                  n, dtype=torch.int32, device=dev).expand(bsz, n)
+        return table[:, :n]
+
+    def search_tree(self, tree: Tree, free: torch.Tensor,
+                    evaluate_fn: EvaluateFn,
+                    generator: Optional[torch.Generator], simulations: int,
+                    gamma: Optional[torch.Tensor] = None):
+        """Run ``simulations`` more PUCT simulations on a carried tree.
+
+        free: (B,) int32 occupied slots per game, the next node's slot. The
+        tree needs room for ``simulations`` more nodes in every game
+        (``advance_root(keep_cap=capacity - simulations)`` leaves it).
+        generator, gamma: the root noise, one (B, A) Gamma draw per
+        simulation, as in ``search``.
+        Updates ``tree`` in place; returns (tree, free)."""
+        self._check_full_width(tree)
+        env = self.env
+        bsz, n = tree.parent.shape
+        if int(free.max()) + simulations > n:
+            raise ValueError(
+                f"search_tree: {simulations} simulations need "
+                f"{int(free.max()) + simulations} slots, the tree has {n}")
+        dev = tree.parent.device
+        batch = torch.arange(bsz, device=dev)
+        plan = None if gamma is not None else self.noise_plan(generator)
+        children = self._child_table(tree)
+        free = free.clone()
+
+        def write(arr, slot, value, mask):
+            """arr[b, slot[b]] = value[b] where mask[b], in place."""
+            cur = arr[batch, slot]
+            m = mask.view((-1,) + (1,) * (cur.dim() - 1))
+            arr[batch, slot] = torch.where(
+                m, torch.as_tensor(value, dtype=arr.dtype, device=dev), cur)
+
+        for i in range(simulations):
+            root_prior = self._root_noisy_prior(
+                tree.prior[:, 0], self.root_gamma(plan, gamma, i, bsz, dev))
+            has = children >= 0
+            flat = children.clamp_min(0).long().view(bsz, -1)
+            nv = torch.where(has, tree.visits.gather(1, flat).view_as(has),
+                             0.0)
+            w = torch.where(has, tree.value_sum.gather(1, flat).view_as(has),
+                            0.0)
+            prior_eff = tree.prior.clone()
+            prior_eff[:, 0] = root_prior
+            best_a = self._ucb_action(prior_eff, nv, w)  # (B, N)
+            best_child = children.gather(2, best_a[..., None])[..., 0].long()
+
+            node, action, code, state = self._descend(tree, best_a,
+                                                      best_child)
+
+            # CREATE the selected child at each game's cursor.
+            new = code == _NEW
+            slot = free.long()
+            child_state, reward = env.step(state, action)
+            leaf = torch.where(new, slot, node)
+            leaf_state = child_state.where(new, state)
+            child_terminal = env.is_terminal(child_state)
+            leaf_terminal = torch.where(new, child_terminal,
+                                        tree.is_terminal[batch, node])
+            leaf_reward = torch.where(new, reward, tree.reward[batch, node])
+            probs, values = evaluate_fn(env.observe(leaf_state))
+            probs = probs.float()
+            values = values.float().reshape(bsz)
+
+            write(tree.parent, slot, node, new)
+            write(tree.parent_action, slot, action, new)
+            write(tree.is_terminal, slot, child_terminal, new)
+            write(tree.reward, slot, reward, new)
+            tree.node_count += new.to(torch.int32)
+            children[batch, node, action] = torch.where(
+                new, slot.to(torch.int32), children[batch, node, action])
+            free += new.to(torch.int32)
+
+            # EXPAND the leaf: a new child, or a fresh root.
+            do = ~tree.expanded[batch, leaf] & ~leaf_terminal
+            renormed = renormalize(probs, env.legal_mask(leaf_state))
+            write(tree.prior, leaf, renormed, do)
+            write(tree.value_evaluated, leaf, values, do)
+            write(tree.expanded, leaf, True, do)
+
+            leaf_value = torch.where(leaf_terminal, leaf_reward, -values)
+            self._backup(tree, leaf, leaf_value)
+        return tree, free
 
     # -- outputs -------------------------------------------------------------
 

@@ -482,3 +482,18 @@ def test_chess_tactics_labels_and_search_on_card(tmp_path):
         str(tmp_path / "t.npz"), use_mcts=True, sims=16, batch=8,
         device=device) for device in ("cuda", "cpu")]
     assert reports[0] == reports[1]
+
+
+@pytest.mark.cuda
+def test_search_tree_on_card_matches_cpu():
+    """Subtree reuse: ``search_tree`` and ``advance_root`` on the card and
+    on the CPU, the same positions and Gamma draws, every Tree field and
+    ``free`` bit-equal after every search and advance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(3)
+    env = ConnectN(ConnectNConfig())
+    states = chip_smoke.random_positions(env, 32, 20, gen, device)
+    searched, _ = chip_smoke.reuse_card_vs_cpu(env, states, 48, 4, gen)
+    assert searched == 4

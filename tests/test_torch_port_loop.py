@@ -326,9 +326,17 @@ def test_loop_with_aux_targets(tmp_path, policy_weight):
     ({"mcts.reuse_tree": "true"}, "Subtree reuse"),
 ])
 def test_unported_settings_raise_at_construction(tmp_path, overrides, item):
-    """Multi-GPU and subtree reuse raise before anything starts. Chess and
-    Gumbel search are ported: the Learner builds them."""
+    """Multi-GPU raises before anything starts. Chess, Gumbel search and
+    subtree reuse are ported: the Learner builds them, and with reuse it
+    generates."""
     cfg = _tiny_cfg(tmp_path, "np", 1, **overrides)
+    if item == "Subtree reuse":
+        cfg = _tiny_cfg(tmp_path, "np", 1, **overrides,
+                        **{"self_play.max_plies": "6"})
+        batch, stats = Learner(cfg, device="cpu").generate()
+        assert int(stats.plies) == 6 * 8
+        assert batch.policy.shape == (6 * 8, 7)
+        return
     if item in ("Chess engine", "Gumbel search"):
         learner = Learner(cfg, device="cpu")
         assert learner.env.num_actions == (1968 if item == "Chess engine"

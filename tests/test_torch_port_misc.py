@@ -109,7 +109,10 @@ def test_port_imports_no_jax():
                     "tools/lineage.py", "tools/distill.py",
                     "tools/chess_strength.py", "tools/chess_tactics.py",
                     "tools/bench_chess.py", "tools/profile_chess.py",
-                    "tools/chess_inloop_bench.py"}
+                    "tools/chess_inloop_bench.py", "serving/__init__.py",
+                    "serving/server.py", "serving/client.py",
+                    "serving/__main__.py", "tools/profile.py",
+                    "tools/inloop_bench.py", "tools/gumbel_probe.py"}
     assert learner_side <= {path.relative_to(package).as_posix()
                             for path in files[:-1]}
     for path in files:
@@ -156,6 +159,24 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_selfplay_fn(chess, MCTSConfig(use_gumbel=True),
                          SelfPlayConfig(), 4)
+    # Subtree reuse: search_tree runs where its tree lives, and the tree
+    # and the reuse generation start on the card.
+    from custom_alphazero_tpu_torch.search.mcts import MCTS
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_selfplay_fn(env, MCTSConfig(reuse_tree=True), SelfPlayConfig(),
+                         4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MCTS(env).search_tree(MCTS(env).init_tree(env.init(2), 8),
+                              None, None, None, 4)
+    from custom_alphazero_tpu_torch.config import Config
+    from custom_alphazero_tpu_torch.serving.__main__ import build_service
+    from custom_alphazero_tpu_torch.tools import profile
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_service(Config(), port=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        profile.phase_timings()
 
 
 def test_kernel_digest_covers_headers(tmp_path, monkeypatch):

@@ -116,12 +116,12 @@ def test_selfplay_samples_noise_on():
     (dict(max_nodes=64), "General search path"),
 ])
 def test_unported_modes_raise(override, item):
-    """Subtree reuse is not ported and raises, naming its ROADMAP item. The
-    general search path is ported: a config that the fused search rejects
-    (max_nodes > 0) runs it and matches JAX's general-path self-play. Gumbel
-    search is ported (tests/test_torch_port_gumbel.py holds it to JAX): it
-    builds, and refuses the fused kernel."""
-    if item == "General search path":
+    """Every mode is ported now. Subtree reuse and the general search path
+    (a config that the fused search rejects, max_nodes > 0) run and match
+    JAX's self-play (tests/test_torch_port_reuse.py holds reuse further).
+    Gumbel search is ported (tests/test_torch_port_gumbel.py holds it to
+    JAX): it builds, and refuses the fused kernel."""
+    if item in ("General search path", "Subtree reuse"):
         _assert_matches_jax(dict(simulations=8, greedy_from_move=0,
                                  **override),
                             dict(continuous=True, exclude_draws=False),
@@ -135,9 +135,7 @@ def test_unported_modes_raise(override, item):
             make_selfplay_fn(env, MCTSConfig(**override), SelfPlayConfig(),
                              4, device="cpu", fused=True)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        make_selfplay_fn(env, MCTSConfig(**override), SelfPlayConfig(), 4,
-                         device="cpu")
+    raise AssertionError(f"unknown mode {item}")
 
 
 def test_non_fused_request_raises():
