@@ -27,7 +27,7 @@ Phases (any failed check raises and exits non-zero):
    Dirichlet alpha 1.0, continuous auto-reset, 1024 games, 42 plies) with
    the trained weights in bf16, every wave a replay of the search's CUDA
    graph (the step kernel + the net); every wave must go through the
-   kernel and none through the plain version. Then 12 plies (for time) of
+   kernel and none through the plain version. Then 6 plies (for time) of
    the same generation with every wave launched from the host
    (``graph=False``). Prints
    simulations/s of each, the kernel / net / rest split, one profiled ply
@@ -68,7 +68,7 @@ Phases (any failed check raises and exits non-zero):
    steps, a tree render every generation; solver scoring on) in a
    temporary directory seeded with the committed training state: both
    generations train, both arenas run and are solver-scored (the line, the
-   metric, positions and seconds; for time on 40 and 20 positions, not
+   metric, positions and seconds; for time on 20 positions each, not
    200), every render's root edges hold the
    search's 249 visits, the ``updated_mcts`` renders follow a promotion in
    the first arena, the checkpoint restores with a matching hash. Prints
@@ -98,8 +98,9 @@ Phases (any failed check raises and exits non-zero):
    draws: actions and root visits equal in every game but one whose search
    took a decision closer than 1e-5 (relative), which is printed.
 17. chess-r5 Gumbel self-play in bf16 (B=128, 100 simulations, continuous)
-   for 8 plies: simulations/s and the samples' checks, one search split by
-   part (precompute, descent, env, net, backup), one profiled ply.
+   for 4 plies (for time; 8 before the multi-GPU phase): simulations/s and
+   the samples' checks, one search split by part (precompute, descent,
+   env, net, backup), one profiled ply.
 18. The entry point on chess: ``run(cfg, generations=1)`` on the committed
    chess-r5 config from its training state (step 2800), with 4-ply plain
    generation (4-ply games never end, so continuous generation keeps no
@@ -138,7 +139,7 @@ Phases (any failed check raises and exits non-zero):
    the CPU engine; at least one game decisive).
 22. Subtree reuse: ``MCTS.search_tree`` and ``MCTS.advance_root`` on the
    card and on the CPU from 64 random c4-r5 positions, 250 simulations,
-   the dyadic evaluator and the same Gamma draws, 6 greedy plies: every
+   the dyadic evaluator and the same Gamma draws, 3 greedy plies: every
    Tree field and ``free`` bit-equal after every search and advance. Then
    c4-r5 self-play with ``mcts.reuse_tree`` on the card (the trained net in
    bf16, B=1024, 4 plies): kept subtrees within keep_cap, visits carried
@@ -158,11 +159,29 @@ Phases (any failed check raises and exits non-zero):
    appears, later replies following the new net; SIGINT, exit code 0. Then ``build_service`` in float32 in this process (TF32 off) within
    1e-4 of the CPU's forward, fewer forwards than requests. Prints latency
    p50 / p99, requests/s and the batch request's ms.
-24. The profiling tools through their mains: ``tools.profile`` (JAX's five
-   keys; a Chrome trace of one generation that names K1's kernel, its K1
-   kernel events beside the launch counter) and ``tools.inloop_bench 256
-   --iters=1`` (both lines).
-25. The kernels' JSON line, the card's line, and the result line.
+24. The profiling tools: ``tools.profile`` through its main (JAX's five
+   keys) and its ``capture_trace`` at B=1024 with 8 simulations, for time
+   (a Chrome trace of one generation that names K1's kernel, its K1
+   kernel events beside the launch counter), and ``tools.inloop_bench 256
+   --iters=1`` through its main (both lines).
+25. Multi-GPU on the one card: NCCL at world size 1 (``initialize``, an
+   all-reduce of a card tensor, ``broadcast_flag``, ``sync_hosts``); then
+   two ranks on the card over Gloo (parallel/launch.py; the backend line
+   printed): the dp=2 float32 train step against phase 10's one-rank step
+   on the same 1024 rows and 256 aux rows (TF32 off, cuDNN deterministic;
+   phase 10's bounds, the momentum held leaf by leaf through the
+   gradient; a negative control, the same step with BatchNorm over each
+   rank's own rows, must fail the gradient rule), the mp=2 float32
+   forward of the c4-r5 net against one rank's (< 1e-4), and
+   ``run(cfg, generations=2)`` on the c4-r5 config at dp=2 (512 games, a
+   200,000-row ring and 128 arena games per rank; arena and checkpoint
+   every 20 steps, 20 scored positions per arena): equal summaries, each
+   rank's K1 launches exact with no plain-version call, nothing written by
+   rank 1, a checkpoint of 400,000 rows with cursors of shape (2,), and a
+   resume at dp=2 at the same step and ring size. Then, in the same two
+   ranks, ``tools.dryrun_multigpu``'s dry run (mp=2, its five lines). Both
+   ranks share one card: no figure here is a scaling figure.
+26. The kernels' JSON line, the card's line, and the result line.
 
 ``python3 chip_smoke.py --launch-shapes`` runs a tuning aid in place of the
 phases: K1 built with 1, 2, 4 and 8 games (warps) per block, each checked
@@ -201,7 +220,7 @@ AUX_BATCH = 256
 ARENA_GAMES = 256
 # Phase 12 scores, to save time, only this many positions of each arena
 # (the loop scores 200).
-FIRST_ARENA_POSITIONS = 40
+FIRST_ARENA_POSITIONS = 20
 SECOND_ARENA_POSITIONS = 20
 # Phase 10, card vs CPU, per leaf: the L2 distance of the gradients over the
 # larger of the leaf's gradient norm and the floor. Seven batches read
@@ -210,6 +229,10 @@ SECOND_ARENA_POSITIONS = 20
 # gradient have norms of 4e-4 and more; the one without holds 5e-8 of noise.
 GRAD_L2_LIMIT = 5e-2
 GRAD_NORM_FLOOR = 1e-4
+# Phase 25, the dp=2 step vs phase 10's one-rank step: the same rule and
+# limit, which the negative control (BatchNorm over each rank's own rows)
+# must fail.
+DP2_GRAD_L2_LIMIT = GRAD_L2_LIMIT
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak
 BATCH = 1024
 SIMS = 250
@@ -217,7 +240,7 @@ MAX_PLIES = 42
 GENERAL_PLIES = 4  # phase 8: plies of each self-play path
 # Phase 5's host-launched generation, for time: its rate only (the graph
 # run plays all 42 plies).
-HOST_PLIES = 12
+HOST_PLIES = 6
 SNAPSHOT_LAUNCHES = 10
 # Waves whose mean kernel time is the kernel's "ms" (as in earlier runs), and
 # further ones for the fit of time against depth.
@@ -594,13 +617,19 @@ def profiled(fn, host: bool = True):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     ms_by_name, count_by_name, host_calls = {}, {}, {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            count_by_name[evt.name] = count_by_name.get(evt.name, 0) + 1
-            ms_by_name[evt.name] = (ms_by_name.get(evt.name, 0.0)
-                                    + evt.time_range.elapsed_us() / 1e3)
-        elif evt.name in HOST_LAUNCH_CALLS:
-            host_calls[evt.name] = host_calls.get(evt.name, 0) + 1
+    # The raw events, as torch's own parse (``prof.events()``) reads them
+    # but without its tree of Python objects: that costs some 80 us an
+    # event, tens of seconds for a ply's hundreds of thousands.
+    for evt in prof.profiler.kineto_results.events():
+        if getattr(evt, "is_hidden_event", lambda: False)():
+            continue
+        name = evt.name()
+        if evt.device_type() == DeviceType.CUDA:
+            count_by_name[name] = count_by_name.get(name, 0) + 1
+            ms_by_name[name] = (ms_by_name.get(name, 0.0)
+                                + evt.duration_ns() / 1e6)
+        elif name in HOST_LAUNCH_CALLS:
+            host_calls[name] = host_calls.get(name, 0) + 1
     return wall_ms, ms_by_name, count_by_name, host_calls
 
 
@@ -737,7 +766,8 @@ def ring_phase(env, samples, gen, device):
 
 
 def train_phase(ring, codec, gen, device):
-    """Phase 10."""
+    """Phase 10; returns the float32 step on the card (its inputs, the
+    state after it, the momentum before it, its metrics) for phase 25."""
     import numpy as np
 
     from custom_alphazero_tpu_torch.config import ModelConfig
@@ -837,6 +867,9 @@ def train_phase(ring, codec, gen, device):
               f"gradient of {leaf[0]} differs from the CPU's: L2 distance "
               f"{leaf[3]['card'][1]:.3e}, norm {leaf[2]:.3e}")
 
+    card_step = {"obs": obs.cpu(), "pi": pi.cpu(), "z": z.cpu(),
+                 "aux_idx": aux_idx.cpu(), "state": gpu,
+                 "trace_before": trace_before, "metrics": metrics["card"]}
     bf16 = ModelConfig(**widths)
     state = train_state_from_jax(tree, 7, bf16)
     step = make_train_step(bf16, aux_value_weight=0.25,
@@ -865,6 +898,7 @@ def train_phase(ring, codec, gen, device):
         f"same 20; device busy {busy_ms:.3f} ms (the profiled step); the "
         f"ring's sample alone {sample_ms:.3f} ms; loss {loss:.5f} at step "
         f"{state.steps}")
+    return card_step
 
 
 def gradient_errors(reference, trace_before, momentum: float, others):
@@ -1354,7 +1388,7 @@ CHESS_TRAINING_STATE = os.path.join(CHESS_DIR, "final_training_state")
 CHESS_LABELS = os.path.join(REPO, "data", "chess_tactic_labels.npz")
 RUN_CHESS_R5 = os.path.join(REPO, "run_chess_r5.sh")
 CHESS_BATCH = 128      # run_chess_r5.sh's games per generation
-CHESS_PLIES = 8        # phase 17's self-play plies (committed: 256)
+CHESS_PLIES = 4        # phase 17's self-play plies (committed: 256)
 CHESS_LEARNER_PLIES = 4  # phases 18 and 19: generation and arena plies
 CHESS_GAME_PLIES = 40  # phase 15's random games
 CHESS_LEARNER_STEPS = 16
@@ -2204,7 +2238,8 @@ def replay_on_cpu(chess_cfg, rows, halves) -> dict:
 # ---- slice 8: subtree reuse, the serving tier, the profiling tools ---------
 
 REUSE_POSITIONS = 64   # phase 22, card vs CPU
-REUSE_PLIES = 6
+TRACE_SIMS = 8         # phase 24's traced generation
+REUSE_PLIES = 3
 REUSE_SELFPLAY_PLIES = 4
 SERVE_REQUESTS = 256   # phase 23: single-state requests
 SERVE_THREADS = 32
@@ -2608,8 +2643,8 @@ def serving_phase(env, gen, device, newer: str) -> None:
 
 
 def profiling_phase(device) -> int:
-    """Phase 24: the profiling tools through their mains on the card;
-    returns K1's launches there."""
+    """Phase 24: the profiling tools on the card; returns K1's launches
+    there."""
     from custom_alphazero_tpu_torch.ops import fused_mcts_v2
     from custom_alphazero_tpu_torch.tools import inloop_bench, profile
 
@@ -2617,15 +2652,15 @@ def profiling_phase(device) -> int:
     fused_mcts_v2.wave_step.launches = 0
     fused_mcts_v2.wave_step_reference.calls = 0
     t0 = time.perf_counter()
-    code, lines = captured_stdout(
-        lambda: profile.main([f"--trace-dir={trace_dir}"]))
-    seconds = time.perf_counter() - t0
-    launches = fused_mcts_v2.wave_step.launches
+    code, lines = captured_stdout(lambda: profile.main([]))
     check(code == 0, f"tools.profile exited {code}")
     keys = [line.split(":")[0] for line in lines[:5]]
     check(keys == ["selfplay_s", "train_step_s", "arena_s", "sims_per_s",
                    "samples_per_s"], f"tools.profile printed {lines}")
-    path = os.path.join(trace_dir, profile.TRACE_FILE)
+    # The trace, for time at 8 simulations (the tool's default is 64).
+    path = profile.capture_trace(trace_dir, sims=TRACE_SIMS)
+    seconds = time.perf_counter() - t0
+    launches = fused_mcts_v2.wave_step.launches
     check(os.path.exists(path), f"no trace at {path}")
     size = os.path.getsize(path)
     with open(path) as fp:
@@ -2640,9 +2675,10 @@ def profiling_phase(device) -> int:
     check(fused_mcts_v2.wave_step_reference.calls == 0,
           "the plain version ran on the card")
     shutil.rmtree(trace_dir, ignore_errors=True)
-    # The traced generation: 42 plies x (64 + 1) waves, replayed.
-    traced = MAX_PLIES * 65
-    log(f"tools.profile main: {seconds:.1f} s, {events} trace events "
+    # The traced generation: 42 plies x (8 + 1) waves, replayed.
+    traced = MAX_PLIES * (TRACE_SIMS + 1)
+    log(f"tools.profile main and its trace at {TRACE_SIMS} simulations: "
+        f"{seconds:.1f} s, {events} trace events "
         f"({size / 1e6:.1f} MB); K1 launches over the call {launches} (one "
         f"traced generation: {traced}); K1 kernels in the trace {in_trace}, "
         f"cudaGraphLaunch calls {graph_launches}"
@@ -2660,6 +2696,435 @@ def profiling_phase(device) -> int:
         f"inloop_bench printed {lines}")
     launches += fused_mcts_v2.wave_step.launches - before
     log(f"tools.inloop_bench main: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def rank_task(work: str) -> None:
+    """One rank of phase 25 (two ranks on the card, started by
+    custom_alphazero_tpu_torch/parallel/launch.py; each reads its inputs
+    from and writes its results to ``work``), in one process for time:
+
+    ``steps``: the float32 train step of phase 10 at dp=2 (each rank takes
+    its 512 of the 1024 rows; TF32 off, cuDNN deterministic), then the
+    float32 forward of the c4-r5 net at mp=2. ``run``: ``run(cfg)`` on the
+    c4-r5 config at dp=2 (``spec.json`` gives the overrides and each
+    rank's results directory), the solver scoring 20 positions of each
+    arena. ``resume``: the same run resumed at dp=2 from the coordinator's
+    directory for one generation of one ply, without training. ``dryrun``:
+    ``tools.dryrun_multigpu``'s ranks (mp=2) in these two processes, which
+    saves a third start of two ranks."""
+    import numpy as np
+
+    from custom_alphazero_tpu_torch.config import (
+        MeshConfig,
+        ModelConfig,
+        apply_overrides,
+        from_json,
+    )
+    from custom_alphazero_tpu_torch.io.checkpoint import (
+        load_checkpoint,
+        load_jax_checkpoint,
+        save_checkpoint,
+    )
+    from custom_alphazero_tpu_torch.models.convert import (
+        from_jax_variables,
+        train_state_from_jax,
+        train_state_to_jax,
+    )
+    from custom_alphazero_tpu_torch.models.policy_value import data_parallel
+    from custom_alphazero_tpu_torch.ops import fused_mcts_v2
+    from custom_alphazero_tpu_torch.parallel import distributed
+    from custom_alphazero_tpu_torch.parallel.mesh import (
+        make_mesh,
+        shard_batch,
+        shard_params,
+    )
+    from custom_alphazero_tpu_torch.runtime.loop import run
+    from custom_alphazero_tpu_torch.runtime.train import make_train_step
+    from custom_alphazero_tpu_torch.tools import strength
+    from custom_alphazero_tpu_torch.tools.dryrun_multigpu import dryrun_rank
+
+    device = distributed.initialize()
+    rank = distributed.rank()
+    with open(os.path.join(work, "spec.json")) as fp:
+        spec = json.load(fp)
+    results = {"steps": {}, "run": {}, "resume": {}}
+    out = results["steps"]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    inputs = torch.load(os.path.join(work, "inputs.pt"))
+    fp32 = ModelConfig(**spec["widths"], compute_dtype="float32")
+    tree, _ = load_checkpoint(TRAINING_STATE)
+    state = train_state_from_jax(tree, 7, fp32, device=device)
+    mesh = make_mesh(MeshConfig(data_parallelism=2))
+    data_parallel(state.net, mesh.data_group, mesh.dp)
+    step = make_train_step(fp32, aux_value_weight=0.25,
+                           aux_value_batch=AUX_BATCH, mesh=mesh)
+    with np.load(LABELS) as labels:
+        aux = tuple(torch.from_numpy(labels[k].astype(np.float32)).to(
+            device) for k in ("obs", "z"))
+    rows = shard_batch(tuple(inputs[k].to(device)
+                             for k in ("obs", "pi", "z")), mesh)
+    distributed.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = step(state, *rows, None, *aux, None,
+                inputs["aux_idx"].to(device))
+    torch.cuda.synchronize()
+    out["step_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["step_collectives"] = dict(distributed.COUNTS)
+    out["terms"] = [float(getattr(m, t)) for t in (
+        "loss", "policy_loss", "value_loss", "l2", "solver_value_loss")]
+    if rank == 0:
+        save_checkpoint(os.path.join(work, "dp2"),
+                        train_state_to_jax(state, fp32), 0.0)
+    # The negative control: the same step from the same start with each
+    # rank's BatchNorm over its own 512 rows (no data_parallel), the fault
+    # that global statistics guard against; it must fail phase 25's rules.
+    local = train_state_from_jax(tree, 7, fp32, device=device)
+    step(local, *rows, None, *aux, None, inputs["aux_idx"].to(device))
+    if rank == 0:
+        save_checkpoint(os.path.join(work, "dp2_local_bn"),
+                        train_state_to_jax(local, fp32), 0.0)
+    del local
+    # Five more steps on the same rows, timed (the first one above
+    # includes cuDNN's set-up).
+    distributed.sync_hosts("timed steps")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step(state, *rows, None, *aux, None, inputs["aux_idx"].to(device))
+    torch.cuda.synchronize()
+    out["steady_step_ms"] = 1e3 * (time.perf_counter() - t0) / 5
+    # The collectives alone: the step's gradient all-reduce, one
+    # BatchNorm layer's (2 x 128 sums), and a host gather of a
+    # checkpoint's 200,000 ring rows of 16 int32 words per rank to the
+    # coordinator.
+    timings = {}
+    numel = sum(p.numel() for p in state.net.parameters())
+    for name, tensor, repeats in (
+            ("all_reduce_gradient", torch.zeros(numel, device=device), 20),
+            ("all_reduce_batchnorm", torch.zeros(256, device=device), 20),
+            ("gather_host_ring", torch.zeros(
+                (RING_CAPACITY // 2, 16), dtype=torch.int32,
+                device=device), 3)):
+        gather = name.startswith("gather")
+        for turn in range(repeats + 1):
+            if turn == 1:  # the first is a warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            if gather:
+                distributed.gather_host(tensor)
+            else:
+                distributed.all_reduce(tensor)
+        torch.cuda.synchronize()
+        timings[name] = 1e3 * (time.perf_counter() - t0) / repeats
+    out["collective_ms"] = timings
+    out["gradient_floats"] = numel
+    params, batch_stats, _ = load_jax_checkpoint(CHECKPOINT)
+    net = from_jax_variables(params, batch_stats, 7, fp32, device=device)
+    shard_params(net, make_mesh(MeshConfig(data_parallelism=1,
+                                           model_parallelism=2)))
+    out["sharded"] = [name for name, module in net.named_modules()
+                      if type(module).__name__ == "ColumnParallelLinear"]
+    with torch.inference_mode():
+        logits, value = net(inputs["fwd_obs"].to(device))
+    torch.save({"logits": logits.cpu(), "value": value.cpu()},
+               os.path.join(work, f"forward{rank}.pt"))
+    torch.backends.cudnn.allow_tf32 = True  # the defaults again
+    torch.backends.cudnn.deterministic = False
+    score_arena_log = strength.score_arena_log
+    strength.score_arena_log = lambda log: score_arena_log(
+        log, max_positions=SECOND_ARENA_POSITIONS)
+    for part, results_dir, extra, generations in (
+            ("run", spec["dirs"][rank], {}, 2),
+            ("resume", spec["dirs"][0], {
+                "self_play.max_plies": "1",
+                "loop.train_iterations_per_generation": "0"}, 1)):
+        distributed.sync_hosts(part)
+        out = results[part]
+        with open(C4R5_CONFIG) as fp:
+            cfg = apply_overrides(from_json(fp.read()), dict(
+                spec["overrides"], **extra,
+                **{"run.results_dir": results_dir}))
+        captures = fused_mcts_v2.FusedConnectNSearchV2.captures
+        fused_mcts_v2.wave_step.launches = 0
+        fused_mcts_v2.wave_step_reference.calls = 0
+        print(f"phase 25 part {part!r}", flush=True)
+        t0 = time.perf_counter()
+        out["summary"] = run(cfg, generations=generations)
+        out["wall_s"] = time.perf_counter() - t0
+        out["launches"] = fused_mcts_v2.wave_step.launches
+        out["plain_calls"] = fused_mcts_v2.wave_step_reference.calls
+        out["captures"] = fused_mcts_v2.FusedConnectNSearchV2.captures - (
+            captures)
+    with open(os.path.join(work, f"results{rank}.json"), "w") as fp:
+        json.dump(results, fp)
+    print("phase 25 part 'dryrun'", flush=True)
+    t0 = time.perf_counter()
+    dryrun_rank(2)  # leaves the process group
+    if rank == 0:
+        print(f"dry run: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def launch_ranks(work: str, spec: dict, timeout_s: float):
+    """Phase 25's two ranks: each rank's output (printed) and results."""
+    from custom_alphazero_tpu_torch.parallel import launch
+
+    with open(os.path.join(work, "spec.json"), "w") as fp:
+        json.dump(spec, fp)
+    t0 = time.perf_counter()
+    # The coordinator scores arenas on the host while rank 1 waits in its
+    # next collective: the collectives' limit is the call's own.
+    outputs = launch.launch(
+        2, ["-c", f"import chip_smoke; chip_smoke.rank_task({work!r})"],
+        timeout_s=timeout_s, collective_timeout_s=timeout_s)
+    log(f"two ranks on the card: {time.perf_counter() - t0:.1f} s")
+    results = []
+    for rank, text in enumerate(outputs):
+        for line in text.splitlines():
+            if line.strip():
+                print(f"  [rank {rank}] {line}")
+        with open(os.path.join(work, f"results{rank}.json")) as fp:
+            results.append(json.load(fp))
+    return outputs, results
+
+
+def dir_listing(root: str) -> dict:
+    """{path: (size, mtime)} of every file under ``root``."""
+    return {os.path.join(d, f): (os.path.getsize(os.path.join(d, f)),
+                                 os.path.getmtime(os.path.join(d, f)))
+            for d, _, files in os.walk(root) for f in files}
+
+
+def multi_gpu_phase(card_step, obs, device) -> list:
+    """Phase 25; returns each rank's K1 launches in the dp=2 run."""
+    import numpy as np
+
+    from custom_alphazero_tpu_torch import paths
+    from custom_alphazero_tpu_torch.config import ModelConfig
+    from custom_alphazero_tpu_torch.io.checkpoint import (
+        load_checkpoint,
+        load_jax_checkpoint,
+        load_replay,
+    )
+    from custom_alphazero_tpu_torch.models.convert import (
+        from_jax_variables,
+        train_state_from_jax,
+    )
+    from custom_alphazero_tpu_torch.ops import fused_mcts_v2
+    from custom_alphazero_tpu_torch.parallel import distributed
+
+    # -- 1. NCCL at world size 1 ---------------------------------------------
+    work = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    t0 = time.perf_counter()
+    distributed.initialize(init_method=f"file://{work}/store", world_size=1,
+                           rank=0)
+    backend = distributed.backend()
+    x = torch.arange(4.0, device=device)
+    distributed.all_reduce(x)
+    flags = (distributed.broadcast_flag(True), distributed.broadcast_flag(False))
+    distributed.sync_hosts("chip_smoke")
+    distributed.shutdown()
+    check(backend == "nccl", f"one rank on one card: backend {backend}")
+    check(x.tolist() == [0.0, 1.0, 2.0, 3.0] and flags == (True, False),
+          f"NCCL at world size 1: {x.tolist()}, flags {flags}")
+    log(f"multi-GPU: NCCL {'.'.join(map(str, torch.cuda.nccl.version()))} "
+        f"at world size 1 on {device}: all_reduce, broadcast_flag, "
+        f"sync_hosts in {time.perf_counter() - t0:.2f} s")
+
+    # -- 2a/2b. the dp=2 float32 step and the mp=2 forward --------------------
+    widths = dict(depth=4, filters=128, value_hidden=256,
+                  lr_boundaries=(10000, 13000),
+                  lr_values=(0.0005, 0.00025, 0.0001))
+    fwd_obs = obs[:TRAIN_BATCH].cpu()
+    torch.save({k: card_step[k] for k in ("obs", "pi", "z", "aux_idx")}
+               | {"fwd_obs": fwd_obs}, os.path.join(work, "inputs.pt"))
+    # The run's directories, one per rank, each seeded with the committed
+    # training state (no ring): rank 1 reads its copy and writes nothing.
+    dirs = [os.path.join(work, f"rank{r}") for r in (0, 1)]
+    for d in dirs:
+        shutil.copytree(TRAINING_STATE,
+                        paths.training_path(d, "connect_n", "smoke"))
+    before = dir_listing(dirs[1])
+    overrides = {
+        "arena.evaluation_frequency": "20",
+        "arena.checkpoint_frequency": "20",
+        "loop.solver_labels_path": LABELS,
+        "run.run_id": "smoke",
+    }
+    os.environ["CAZ_SOLVER_CACHE"] = os.path.join(work, "solver_cache.npz")
+    outputs, ranks = launch_ranks(work, {
+        "widths": widths, "overrides": overrides, "dirs": dirs}, 900)
+    check("distributed: world=2 backend=gloo devices=[cuda:0, cuda:0]"
+          in outputs[0], "the two ranks' backend line is missing")
+    results = [r["steps"] for r in ranks]
+    fp32 = ModelConfig(**widths, compute_dtype="float32")
+    tree, _ = load_checkpoint(os.path.join(work, "dp2"))
+    dp2 = train_state_from_jax(tree, 7, fp32, device=device)
+    card = card_step["state"]
+
+    def max_err(xs, ys):
+        return max((x - y).abs().max().item() for x, y in zip(xs, ys))
+
+    param_err = max_err(dp2.net.parameters(), card.net.parameters())
+    stat_err = max_err(dp2.net.buffers(), card.net.buffers())
+    trace_err = max_err(dp2.trace, card.trace)
+    want = [float(getattr(card_step["metrics"], t)) for t in (
+        "loss", "policy_loss", "value_loss", "l2", "solver_value_loss")]
+    term_err = max(abs(a - b) for a, b in zip(results[0]["terms"], want))
+    check(results[0]["terms"] == results[1]["terms"],
+          "the two ranks report different loss terms")
+
+    class Reference:  # phase 10's card step, its momentum on the host
+        net = card.net
+        trace = [t.cpu() for t in card.trace]
+
+    tree, _ = load_checkpoint(os.path.join(work, "dp2_local_bn"))
+    local_bn = train_state_from_jax(tree, 7, fp32, device=device)
+    leaves = gradient_errors(Reference, card_step["trace_before"],
+                             fp32.momentum, {"dp=2": dp2,
+                                             "local BN": local_bn})
+
+    def worst_leaf(label):
+        leaf = max(leaves, key=lambda leaf: leaf[3][label][1]
+                   / max(leaf[2], GRAD_NORM_FLOOR))
+        return leaf[0], leaf[3][label][1] / max(leaf[2], GRAD_NORM_FLOOR)
+
+    worst, ratio = worst_leaf("dp=2")
+    control, control_ratio = worst_leaf("local BN")
+    control_param = max_err(local_bn.net.parameters(), card.net.parameters())
+    control_stat = max_err(local_bn.net.buffers(), card.net.buffers())
+    log(f"multi-GPU: dp=2 float32 train step (2 x 512 rows + the same 256 "
+        f"aux rows; TF32 off, cuDNN deterministic) vs phase 10's one-rank "
+        f"step on the card: max-abs parameters {param_err:.3e}, running "
+        f"statistics {stat_err:.3e}, momentum {trace_err:.3e}, loss terms "
+        f"{term_err:.3e}; worst gradient leaf {worst} at {ratio:.3e} of "
+        f"its norm; {results[0]['step_ms']:.1f} ms for that first step "
+        f"(cuDNN's set-up included), {results[0]['steady_step_ms']:.1f} ms "
+        f"per step over 5 more, {results[0]['step_collectives']} "
+        f"collectives per step on rank 0 (two ranks time-share one card "
+        f"over Gloo)")
+    # The momentum after the step is the gradient plus the same bits in
+    # both runs: it is held leaf by leaf as the gradient is (phase 10's
+    # rule). Its max-abs is printed, not bounded: the same float32 step on
+    # the CPU with the batch's rows reversed moves it by up to 4.3e-4
+    # (blocks.2.conv1.conv.weight) from this training state.
+    log(f"multi-GPU: collectives over Gloo between the two ranks on the "
+        f"card, ms each on rank 0: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in results[0]["collective_ms"].items())
+        + f" (gradient: {results[0]['gradient_floats']} float32)")
+    log(f"multi-GPU: the negative control, the same dp=2 step with each "
+        f"rank's BatchNorm over its own 512 rows, vs phase 10's step: "
+        f"max-abs parameters {control_param:.3e}, running statistics "
+        f"{control_stat:.3e}; worst gradient leaf {control} at "
+        f"{control_ratio:.3e} of its norm (the rule: < "
+        f"{DP2_GRAD_L2_LIMIT:g})")
+    check(param_err < 1e-4 and stat_err < 1e-4,
+          f"dp=2 step: parameters {param_err}, statistics {stat_err}")
+    check(term_err < 1e-4, f"dp=2 step: loss terms {term_err}")
+    for leaf in leaves:
+        check(leaf[3]["dp=2"][1] / max(leaf[2], GRAD_NORM_FLOOR)
+              < DP2_GRAD_L2_LIMIT, f"dp=2 gradient of {leaf[0]}: "
+              f"{leaf[3]['dp=2'][1]:.3e} from a norm of {leaf[2]:.3e}")
+    params, batch_stats, _ = load_jax_checkpoint(CHECKPOINT)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    net = from_jax_variables(params, batch_stats, 7, fp32, device=device)
+    with torch.inference_mode():
+        want_logits, want_value = net(fwd_obs.to(device))
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    fwd_err = 0.0
+    for rank in (0, 1):
+        got = torch.load(os.path.join(work, f"forward{rank}.pt"))
+        fwd_err = max(fwd_err, (got["logits"] - want_logits.cpu()).abs()
+                      .max().item(), (got["value"] - want_value.cpu()).abs()
+                      .max().item())
+    check(results[0]["sharded"] == ["value_dense1"],
+          f"mp=2 sharded {results[0]['sharded']}, expected value_dense1")
+    log(f"multi-GPU: mp=2 float32 forward of the c4-r5 net on "
+        f"{TRAIN_BATCH} positions (value_dense1's 256 columns split 128 + "
+        f"128) vs one rank: max-abs {fwd_err:.3e} (logits, value)")
+    check(fwd_err < 1e-4, f"mp=2 forward differs: {fwd_err}")
+
+    # -- 2c. run() on the c4-r5 config at dp=2 --------------------------------
+    results = [r["run"] for r in ranks]
+    summaries = [dict(r["summary"]) for r in results]
+    for summary in summaries:
+        summary["timings"] = [{k: v for k, v in t.items()
+                               if not k.endswith(("_s", "_second"))}
+                              for t in summary["timings"]]
+    check(summaries[0] == summaries[1],
+          f"the ranks' summaries differ: {summaries}")
+    _, meta0 = load_checkpoint(TRAINING_STATE)
+    steps = 2 * 20
+    check(summaries[0]["iterations"] == meta0["steps"] + steps,
+          f"dp=2 run: {summaries[0]['iterations']} iterations")
+    expected = 4 * MAX_PLIES * (SIMS + 1) + 3 * fused_mcts_v2.WARMUP_WAVES
+    launches = [r["launches"] for r in results]
+    check(launches == [expected, expected] and
+          [r["plain_calls"] for r in results] == [0, 0] and
+          [r["captures"] for r in results] == [3, 3],
+          f"dp=2 run: K1 launches {launches} (expected {expected} each), "
+          f"plain calls {[r['plain_calls'] for r in results]}, captures "
+          f"{[r['captures'] for r in results]}")
+    check(dir_listing(dirs[1]) == before, "rank 1 wrote into its directory")
+    training = paths.training_path(dirs[0], "connect_n", "smoke")
+    tree, meta = load_checkpoint(training)
+    ring = load_replay(training)
+    rows = np.asarray(ring["value"]).shape[0]
+    head, size = np.asarray(ring["head"]), np.asarray(ring["size"])
+    check(rows == RING_CAPACITY and head.shape == (2,) and size.shape == (2,)
+          and meta["steps"] == meta0["steps"] + steps,
+          f"dp=2 checkpoint: {rows} rows, head {head}, size {size}, step "
+          f"{meta['steps']}")
+    out = outputs[0]
+    for iteration in (meta0["steps"] + 20, meta0["steps"] + 40):
+        check(re.search(rf"\[iter {iteration}\] arena score=.* \(\+\d+/-\d+/="
+                        rf"\d+\)", out) is not None and re.search(
+                  rf"\[iter {iteration}\] solver score=", out) is not None,
+              f"dp=2 run: no arena or solver score at {iteration}")
+    for rank, result in enumerate(results):
+        for t in result["summary"]["timings"]:
+            log(f"multi-GPU run, rank {rank}, generation {t['generation']}: "
+                f"{t['samples']} samples (both ranks), seconds: generate "
+                f"{t['generate_s']:.2f}, replay {t['replay_s']:.3f}, train "
+                f"{t['train_s']:.3f} ({t['train_iterations']} steps), arena "
+                f"{t['arena_s']:.2f}, solver scoring "
+                f"{t['solver_score_s']:.2f}, checkpoint "
+                f"{t['checkpoint_s']:.3f}")
+    log(f"multi-GPU: run(cfg, generations=2) on the c4-r5 config at dp=2 "
+        f"(512 games, a 200,000-row ring and 128 arena games per rank): "
+        f"{results[0]['wall_s']:.1f} s on rank 0; steps {meta0['steps']} -> "
+        f"{meta['steps']}; K1 launches per rank {launches}, no plain calls; "
+        f"rank 1 wrote nothing; the checkpoint holds {rows} rows, head "
+        f"{head.tolist()}, size {size.tolist()}. Both ranks share one card: "
+        "not a scaling figure")
+
+    # The same run resumed at dp=2 from the coordinator's directory (one
+    # ply of self-play, no training: the restore is what is checked).
+    line = (f"Resumed training state at step {meta['steps']} "
+            f"(replay={int(size.sum())})")
+    resume = outputs[0][outputs[0].index("phase 25 part 'resume'"):]
+    check(line in resume, f"dp=2 resume: no line {line!r}")
+    log(f"multi-GPU: resumed at dp=2: {line}")
+
+    # -- 3. the dry run on the card, in the same two ranks ----------------------
+    text = outputs[0][outputs[0].index("phase 25 part 'dryrun'"):]
+    for head in ("dryrun phase self-play OK", "dryrun phase replay OK",
+                 "dryrun phase train OK", "dryrun phase arena OK",
+                 "dryrun_multichip OK: mesh={'data': 1, 'model': 2}"):
+        check(head in text, f"dry run at 2 ranks: no {head!r} in {text!r}")
+    log("multi-GPU: tools.dryrun_multigpu's ranks (mp=2) on the card: "
+        "its five lines")
+    shutil.rmtree(work, ignore_errors=True)
+    check(control_ratio >= DP2_GRAD_L2_LIMIT,
+          f"the gradient rule does not tell BatchNorm over the local batch "
+          f"from BatchNorm over the global batch: {control_ratio:.3e} in "
+          f"{control}")
     return launches
 
 
@@ -2859,7 +3324,7 @@ def main() -> int:
     ring, codec = ring_phase(env, samples, gen, device)
 
     # ---- 10. train step -----------------------------------------------------
-    train_phase(ring, codec, gen, device)
+    card_step = train_phase(ring, codec, gen, device)
     del ring
 
     # ---- 11. arena ----------------------------------------------------------
@@ -2904,7 +3369,10 @@ def main() -> int:
     # ---- 24. the profiling tools --------------------------------------------
     profiling_launches = profiling_phase(device)
 
-    # ---- 25. result lines ---------------------------------------------------
+    # ---- 25. multi-GPU ------------------------------------------------------
+    multi_gpu_launches = multi_gpu_phase(card_step, obs, device)
+
+    # ---- 26. result lines ---------------------------------------------------
     k2_err, k2_ms, k2_plain_ms, k2_bound_ms, k2_carry_bound_ms, k2_fit = k2
     check(k2_launches > 0 and k2_err == 0.0, "K2 did not run or disagreed")
     kernels = [{
@@ -2917,6 +3385,7 @@ def main() -> int:
         "launches_learner": learner_launches,
         "launches_strength_tool": battery_launches,
         "launches_profiling_tools": profiling_launches,
+        "launches_multi_gpu_per_rank": multi_gpu_launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

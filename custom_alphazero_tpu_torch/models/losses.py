@@ -13,7 +13,7 @@
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -55,11 +55,15 @@ def learning_rate(cfg: ModelConfig, step: int) -> float:
     return rate.item()
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor],
-                        max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None,
+                        ) -> List[torch.Tensor]:
     """optax's clip: unchanged while the global norm is below ``max_norm``,
-    else ``(g / norm) * max_norm``. No epsilon, and no host sync."""
-    norm = torch.sqrt(sum(g.square().sum() for g in grads))
+    else ``(g / norm) * max_norm``. No epsilon, and no host sync. ``norm``:
+    the global norm where ``grads`` hold only part of the gradient (a
+    sharded layer's rows)."""
+    if norm is None:
+        norm = torch.sqrt(sum(g.square().sum() for g in grads))
     below = norm < max_norm
     return [torch.where(below, g, (g / norm) * max_norm) for g in grads]
 

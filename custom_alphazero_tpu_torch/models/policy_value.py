@@ -24,6 +24,7 @@ import torch
 import torch.nn as nn
 
 from custom_alphazero_tpu_torch.config import ModelConfig
+from custom_alphazero_tpu_torch.parallel import distributed
 
 
 class BatchNorm(nn.Module):
@@ -34,10 +35,19 @@ class BatchNorm(nn.Module):
     n / (n - 1) per step. In training mode this module normalises with the
     batch statistics and updates both running statistics itself, from the
     mean and inverse deviation the normalisation computed. It has no
-    ``num_batches_tracked``."""
+    ``num_batches_tracked``.
+
+    Under data parallelism (``data_parallel(net, group, dp)``) a training
+    forward normalises with the statistics of the global batch, as JAX's
+    single program over the global batch does: per-channel sums and sums
+    of squares are summed over the data group (and their gradient with
+    them), the variance is Flax's ``E[x^2] - E[x]^2``, and the running
+    statistics take the global mean and biased variance."""
 
     momentum = 0.01  # 1 - Flax's 0.99
     eps = 1e-3
+    # (data group, its size) under data parallelism, else None.
+    reduce = None
 
     def __init__(self, channels: int):
         super().__init__()
@@ -56,6 +66,8 @@ class BatchNorm(nn.Module):
                 mean, var = mean.clone(), var.clone()
             return torch.nn.functional.batch_norm(
                 x, mean, var, self.weight, self.bias, False, 0.0, self.eps)
+        if self.reduce is not None:
+            return self._global_forward(x)
         out, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps)
         with torch.no_grad():
@@ -63,6 +75,31 @@ class BatchNorm(nn.Module):
             self.running_mean.lerp_(mean.float(), self.momentum)
             self.running_var.lerp_(var, self.momentum)
         return out
+
+    def _global_forward(self, x):
+        group, dp = self.reduce
+        xf = x.float()
+        count = dp * (x.numel() // x.shape[1])
+        sums = distributed.all_reduce_autograd(
+            torch.cat([xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3))]), group)
+        mean, mean2 = (sums / count).view(2, -1)
+        var = (mean2 - mean.square()).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach(), self.momentum)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        out = ((xf - mean[None, :, None, None]) * scale[None, :, None, None]
+               + self.bias[None, :, None, None])
+        return out.to(x.dtype)
+
+
+def data_parallel(net: nn.Module, group, dp: int) -> None:
+    """Make ``net``'s BatchNorm layers normalise training batches with the
+    statistics of the global batch, summed over ``group`` of ``dp`` ranks
+    (dp=1: the local batch, as before)."""
+    for module in net.modules():
+        if isinstance(module, BatchNorm):
+            module.reduce = (group, dp) if dp > 1 else None
 
 
 class ConvBlock(nn.Module):

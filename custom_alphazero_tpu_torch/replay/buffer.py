@@ -177,12 +177,28 @@ def replay_state_dict(state: ReplayState) -> dict:
     }
 
 
-def replay_from_state_dict(tree: dict, device=None) -> ReplayState:
-    """A ring on ``device`` from a checkpoint's state dict."""
+def replay_from_state_dict(tree: dict, device=None,
+                           shard: Tuple[int, int] = (0, 1)) -> ReplayState:
+    """A ring on ``device`` from a checkpoint's state dict. ``shard=(d,
+    dp)``: data shard d's ring of a ring written by ``dp`` shards (JAX's
+    global layout: cursors of shape (dp,), each shard's rows contiguous in
+    shard order). A ring written at another ``dp`` raises ``ValueError``:
+    rows cannot move between shards' cursors."""
     device = resolve_device(device)
+    index, parts = shard
+    head, size = np.asarray(tree["head"]), np.asarray(tree["size"])
+    saved = 1 if head.ndim == 0 else head.shape[0]
+    if saved != parts or head.ndim > 1:
+        raise ValueError(
+            f"the checkpoint's replay ring was written by {saved} data "
+            f"shard(s) (cursors of shape {head.shape}); this run has "
+            f"data parallelism {parts}: resume at the data parallelism "
+            "that wrote it, or without its ring (loop.checkpoint_replay)"
+        )
+    rows = np.asarray(tree["value"]).shape[0] // parts
 
     def store(array):
-        array = np.asarray(array)
+        array = np.asarray(array)[index * rows:(index + 1) * rows]
         if array.dtype == np.uint32:
             array = array.view(np.int32)
         t = torch.from_numpy(array.copy()).to(device)
@@ -190,7 +206,8 @@ def replay_from_state_dict(tree: dict, device=None) -> ReplayState:
         return torch.cat([t, spare])
 
     def scalar(x):
-        return torch.tensor(int(x), dtype=torch.int32, device=device)
+        return torch.tensor(int(x.reshape(-1)[index]), dtype=torch.int32,
+                            device=device)
 
     obs, policy = tree["obs"], tree["policy"]
     return ReplayState(
@@ -199,6 +216,6 @@ def replay_from_state_dict(tree: dict, device=None) -> ReplayState:
         policy=(TopKPolicy(store(policy["values"]), store(policy["indices"]))
                 if isinstance(policy, dict) else store(policy)),
         value=store(tree["value"]),
-        head=scalar(tree["head"]),
-        size=scalar(tree["size"]),
+        head=scalar(head),
+        size=scalar(size),
     )

@@ -14,6 +14,17 @@
     4. every ``visualize_frequency`` generations, render one search tree.
 
 Run:  python -m custom_alphazero_tpu_torch.runtime.loop --mcts.simulations=64 ...
+      torchrun --nproc_per_node=N -m custom_alphazero_tpu_torch.runtime.loop ...
+
+With N ranks (parallel/distributed.py) every rank runs this same loop over
+a (data, model) mesh (parallel/mesh.py): each plays its share of the games
+into a ring of its own, trains on its share of every batch (gradients and
+BatchNorm statistics summed over the data group), and plays its share of
+the arena (parallel/sharded.py). Host I/O (directories, ``config.json``,
+metrics, sample archives, checkpoints, renders, solver scoring, printed
+lines) happens on the coordinator only; every rank reads every scalar the
+loop reads, and the STOP file and the solver veto are the coordinator's,
+agreed through ``broadcast_flag``.
 
 The overrides, printed lines, metric tags, directory layout, resume and STOP
 file are the JAX loop's. What differs by design:
@@ -27,12 +38,20 @@ file are the JAX loop's. What differs by design:
   draws its root noise from a generator of its own, seeded from the
   generation's index;
 - the device is read once per generation for the stats, once for the ring's
-  size, and once per train step for the loss terms.
+  size, and once per train step for the loss terms;
+- with several ranks, the generator of the rank at data index d > 0 is
+  re-seeded ``run.seed + RANK_SEED_STRIDE * d`` after the (common) weight
+  initialisation, where JAX splits one key into a key per shard; the
+  auxiliary rows come from a generator seeded alike on every rank, so every
+  rank draws JAX's one subset; a rank outside a mesh clamped below the
+  world raises ``ValueError`` (JAX leaves such devices idle in its one
+  process).
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import math
 import os
 import sys
@@ -68,6 +87,15 @@ from custom_alphazero_tpu_torch.models.convert import (
     train_state_to_jax,
 )
 from custom_alphazero_tpu_torch.models.losses import learning_rate
+from custom_alphazero_tpu_torch.models.policy_value import data_parallel
+from custom_alphazero_tpu_torch.parallel import distributed, sharded
+from custom_alphazero_tpu_torch.parallel.mesh import (
+    Mesh,
+    full_tensors,
+    load_full,
+    make_mesh,
+    shard_params,
+)
 from custom_alphazero_tpu_torch.replay.buffer import (
     replay_add,
     replay_from_state_dict,
@@ -84,6 +112,7 @@ from custom_alphazero_tpu_torch.runtime.arena import make_arena_fn
 from custom_alphazero_tpu_torch.runtime.evaluate import make_evaluate_fn
 from custom_alphazero_tpu_torch.runtime.selfplay import make_selfplay_fn
 from custom_alphazero_tpu_torch.runtime.train import (
+    TrainState,
     init_train_state,
     make_train_step,
 )
@@ -114,34 +143,68 @@ def make_env(cfg: Config):
     raise ValueError(f"Unknown game {cfg.game!r}")
 
 
-def _check_ported(cfg: Config) -> None:
-    """Raise for every setting whose code is not ported, before anything
-    runs."""
-    not_ported = (
-        (cfg.mesh.data_parallelism > 1, "mesh.data_parallelism > 1",
-         "Multi-GPU"),
-        (cfg.mesh.model_parallelism > 1, "mesh.model_parallelism > 1",
-         "Multi-GPU"),
-    )
-    for is_set, setting, item in not_ported:
-        if is_set:
-            raise NotImplementedError(
-                f"{setting} is not ported yet (ROADMAP.md queue 1, "
-                f"'{item}')"
+# Seeds of the per-rank random streams: data index d > 0 is re-seeded
+# run.seed + RANK_SEED_STRIDE * d; the auxiliary stream run.seed +
+# AUX_SEED_OFFSET on every rank.
+RANK_SEED_STRIDE = 0x9E3779B1
+AUX_SEED_OFFSET = 0x5DEECE66D
+
+
+def _auto_data_parallelism(cfg: Config, available: int) -> int:
+    """Largest data-axis size <= ``available`` that divides the workload:
+    games per generation, train batch and replay capacity. The arena does
+    not constrain it (an indivisible ``arena.games`` rounds its per-shard
+    count up instead). An explicit ``mesh.data_parallelism`` bypasses this
+    and lets the sharded builders raise on indivisible sizes."""
+    dp = math.gcd(max(available, 1), cfg.self_play.games_per_generation)
+    dp = math.gcd(dp, cfg.model.batch_size)
+    dp = math.gcd(dp, cfg.replay.capacity)
+    return max(dp, 1)
+
+
+def learner_mesh(cfg: Config) -> Mesh:
+    """The run's mesh over the process group's ranks (one rank without a
+    process group), ``mesh.data_parallelism = 0`` taking every rank that
+    divides the workload. A rank outside the mesh raises."""
+    world = distributed.world_size()
+    mesh_cfg = cfg.mesh
+    if not mesh_cfg.data_parallelism:  # 0 = auto (all ranks that fit)
+        mp = max(mesh_cfg.model_parallelism, 1)
+        auto_dp = _auto_data_parallelism(cfg, world // mp)
+        mesh_cfg = dataclasses.replace(mesh_cfg, data_parallelism=auto_dp)
+        if auto_dp * mp < world and distributed.is_coordinator():
+            print(
+                f"mesh: data axis clamped to {auto_dp} (of "
+                f"{world} devices) to divide the workload; set "
+                "mesh.data_parallelism or pick divisible sizes to use "
+                "every device"
             )
+    mesh = make_mesh(mesh_cfg, world)
+    if not mesh.member:
+        raise ValueError(
+            f"rank {mesh.rank} is outside the {mesh.dp}x{mesh.mp} mesh of "
+            f"{world} ranks (the data axis was clamped to {mesh.dp} to "
+            "divide the workload, or set by mesh.data_parallelism): start "
+            f"{mesh.size} ranks"
+        )
+    return mesh
 
 
 class Learner:
-    """The programs and the nets of one training run on one device.
+    """The programs and the nets of one training run on one rank.
 
-    ``train_state.net`` is the candidate: the module that trains. ``best``
-    is the net that self-play searches with. Both keep their memory for the
-    life of the learner: a checkpoint is loaded into them, and a promotion
-    copied, in place."""
+    ``train_state.net`` is the candidate: the module that trains (with its
+    dense layers column-sharded at mp > 1). ``candidate`` is the net the
+    arena plays as the candidate: the training net itself, or at mp > 1 a
+    full-size copy refreshed from the shards before each use. ``best`` is
+    the net that self-play searches with, always full-size. All keep their
+    memory for the life of the learner: a checkpoint is loaded into them,
+    and a promotion copied, in place."""
 
     def __init__(self, cfg: Config, device=None):
-        _check_ported(cfg)
         self.cfg = cfg
+        self.mesh = learner_mesh(cfg)
+        self.dp, self.mp = self.mesh.dp, self.mesh.mp
         self.device = resolve_device(device)
         self.env = make_env(cfg)
         self.generator = torch.Generator(device=self.device)
@@ -170,6 +233,21 @@ class Learner:
         )
         self.arena = make_arena_fn(self.env, cfg.arena, cfg.mcts, max_plies,
                                    device=self.device)
+        if self.dp > 1:
+            # JAX's checks: each rank holds capacity // dp rows of the ring
+            # and serves batch_size // dp rows of every batch.
+            if cfg.replay.capacity % self.dp:
+                raise ValueError(f"replay capacity {cfg.replay.capacity} "
+                                 f"not divisible by {self.dp}")
+            if cfg.model.batch_size % self.dp:
+                raise ValueError(f"batch_size={cfg.model.batch_size} not "
+                                 f"divisible by data axis {self.dp}")
+            self.sharded_generate = sharded.make_sharded_generate(
+                self.selfplay, self.mesh,
+                cfg.self_play.games_per_generation)
+            self.sharded_arena = sharded.make_sharded_arena(
+                self.arena, self.mesh, cfg.arena.games,
+                cfg.arena.promote_threshold)
 
         # Auxiliary targets: exact-value-labelled positions kept on the
         # device; every train step adds its terms on a random subset.
@@ -182,7 +260,7 @@ class Learner:
             self.solver_labels = tuple(
                 torch.from_numpy(labels[name]).to(self.device)
                 for name in ("obs", "z"))
-            print(
+            _say(
                 f"solver aux value target: {len(labels['z'])} labeled "
                 f"positions from {cfg.loop.solver_labels_path} "
                 f"(weight={cfg.loop.solver_value_weight}, "
@@ -196,8 +274,8 @@ class Learner:
                     )
                 self.solver_labels_pi = torch.from_numpy(
                     labels["pi"]).to(self.device)
-                print("solver aux policy target: weight="
-                      f"{cfg.loop.solver_policy_weight}")
+                _say("solver aux policy target: weight="
+                     f"{cfg.loop.solver_policy_weight}")
         self._train_step = make_train_step(
             cfg.model,
             aux_value_weight=(
@@ -208,51 +286,107 @@ class Learner:
                 cfg.loop.solver_policy_weight
                 if self.solver_labels_pi is not None else 0.0
             ),
+            mesh=self.mesh if self.mesh.size > 1 else None,
         )
 
+        # The same weights on every rank: one seed.
         self.train_state = init_train_state(
             self.env.num_actions, cfg.model, self.generator,
             self.env.obs_shape, device=self.device,
         )
         # The best net starts as the candidate's weights.
         self.best = copy.deepcopy(self.train_state.net).eval()
-        self.evaluate_candidate = make_evaluate_fn(self.train_state.net)
+        self.candidate = self.train_state.net
+        if self.mp > 1:
+            self.candidate = copy.deepcopy(self.train_state.net).eval()
+            shard_params(self.train_state.net, self.mesh,
+                         self.train_state.trace)
+        data_parallel(self.train_state.net, self.mesh.data_group, self.dp)
+        self.evaluate_candidate = make_evaluate_fn(self.candidate)
         self.evaluate_best = make_evaluate_fn(self.best)
+        # Per-shard streams for games, samples and arena moves; one stream
+        # of auxiliary rows on every rank.
+        self.aux_generator = self.generator
+        if self.dp > 1:
+            if self.mesh.data_index > 0:
+                self.generator.manual_seed(
+                    cfg.run.seed + RANK_SEED_STRIDE * self.mesh.data_index)
+            self.aux_generator = torch.Generator(device=self.device)
+            self.aux_generator.manual_seed(cfg.run.seed + AUX_SEED_OFFSET)
 
     # -- state -------------------------------------------------------------
 
     def init_replay(self):
-        cfg = self.cfg
+        """This rank's ring: ``capacity // dp`` rows (the whole ring at
+        dp=1)."""
         return replay_init(
-            cfg.replay.capacity, self.env.obs_shape, self.env.num_actions,
-            self.codec, self.policy_codec, device=self.device,
+            self.cfg.replay.capacity // self.dp, self.env.obs_shape,
+            self.env.num_actions, self.codec, self.policy_codec,
+            device=self.device,
         )
 
     def load_train_state(self, tree: dict) -> None:
         """Fill the candidate (weights, running statistics, momentum, step
-        count) from a checkpoint's train state dict, in place."""
+        count) from a checkpoint's train state dict, in place; each shard
+        takes its rows."""
         state = self.train_state
-        load_jax_variables(state.net, tree["params"], tree["batch_stats"])
-        for mine, saved in zip(state.trace,
-                               trace_from_jax(tree["opt_state"], state.net)):
-            mine.copy_(saved)
+        load_jax_variables(self.candidate, tree["params"],
+                           tree["batch_stats"])
+        trace = trace_from_jax(tree["opt_state"], self.candidate)
+        if self.mp > 1:
+            net = state.net
+            load_full(net, list(self.candidate.parameters()),
+                      list(net.parameters()))
+            for mine, full in zip(net.buffers(), self.candidate.buffers()):
+                mine.copy_(full)
+            load_full(net, trace, state.trace)
+        else:
+            for mine, saved in zip(state.trace, trace):
+                mine.copy_(saved)
         state.steps = int(tree["steps"])
+
+    def refresh_candidate(self) -> None:
+        """At mp > 1, gather the training net's shards into ``candidate``
+        (every rank of the model group calls it); else nothing."""
+        if self.mp == 1:
+            return
+        net = self.train_state.net
+        with torch.no_grad():
+            for mine, full in zip(self.candidate.parameters(),
+                                  full_tensors(net, list(net.parameters()))):
+                mine.copy_(full)
+            for mine, stat in zip(self.candidate.buffers(), net.buffers()):
+                mine.copy_(stat)
+
+    def full_train_state(self) -> TrainState:
+        """The train state at full size: the training state itself, or at
+        mp > 1 the refreshed candidate with the momentum's shards gathered
+        (every rank calls it)."""
+        if self.mp == 1:
+            return self.train_state
+        self.refresh_candidate()
+        state = self.train_state
+        return TrainState(self.candidate, full_tensors(state.net, state.trace),
+                          state.steps)
 
     def promote(self) -> None:
         """Copy the candidate's weights and running statistics into the
         best net, in place."""
-        self.best.load_state_dict(self.train_state.net.state_dict())
+        self.refresh_candidate()
+        self.best.load_state_dict(self.candidate.state_dict())
 
     def winner_state_dict(self) -> dict:
         """The train state dict with the best net's variables: what an
         arena's ``evaluation/iteration_N`` checkpoint holds."""
-        tree = train_state_to_jax(self.train_state, self.cfg.model)
+        tree = train_state_to_jax(self.full_train_state(), self.cfg.model)
         tree["params"], tree["batch_stats"] = to_jax_variables(self.best)
         return tree
 
     # -- programs ----------------------------------------------------------
 
     def generate(self):
+        if self.dp > 1:
+            return self.sharded_generate(self.evaluate_best, self.generator)
         return self.selfplay(self.evaluate_best, self.generator,
                              self.cfg.self_play.games_per_generation)
 
@@ -260,25 +394,49 @@ class Learner:
         return replay_add(replay, batch, self.codec, self.policy_codec)
 
     def replay_sample(self, replay):
+        """This rank's ``batch_size // dp`` rows of the global batch, drawn
+        from its own ring (sampling stratified by shard, as in JAX)."""
         return replay_sample(replay, self.generator,
-                             self.cfg.model.batch_size, self.codec,
-                             self.policy_codec)
+                             self.cfg.model.batch_size // self.dp,
+                             self.codec, self.policy_codec)
 
     def train_step(self, obs, target_pi, target_z):
         if self.solver_labels is None:
             return self._train_step(self.train_state, obs, target_pi,
                                     target_z)[1]
         return self._train_step(
-            self.train_state, obs, target_pi, target_z, self.generator,
+            self.train_state, obs, target_pi, target_z, self.aux_generator,
             *self.solver_labels, self.solver_labels_pi,
         )[1]
 
     def run_arena(self):
+        self.refresh_candidate()
+        if self.dp > 1:
+            return self.sharded_arena(self.evaluate_candidate,
+                                      self.evaluate_best, self.generator)
         return self.arena(self.evaluate_candidate, self.evaluate_best,
                           self.generator, self.cfg.arena.games)
 
     def learning_rate(self) -> float:
         return learning_rate(self.cfg.model, self.train_state.steps)
+
+
+def _say(*args, **kwargs) -> None:
+    """``print`` on the coordinator only."""
+    if distributed.is_coordinator():
+        print(*args, **kwargs)
+
+
+class _NoMetrics:
+    """The metrics writer of a rank that writes none."""
+
+    def scalar(self, *args, **kwargs) -> None:
+        pass
+
+    scalars = scalar
+
+    def close(self) -> None:
+        pass
 
 
 def _save_samples(learner: Learner, batch, path: str) -> None:
@@ -332,26 +490,53 @@ def _visualize_tree(learner: Learner, generation: int, results_dir: str,
 
 def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
     """Train; returns a summary dict (for tests and tools). ``device=None``
-    is the CUDA card."""
-    run_id = cfg.run.run_id or paths.new_run_id()
-    results_dir, game = cfg.run.results_dir, cfg.game
+    is the CUDA card (this rank's, after ``distributed.initialize``).
+
+    With several ranks every rank calls this with the same ``cfg``; the
+    results directory is read by every rank (resume) and written by the
+    coordinator only. The summary is the same on every rank but for the
+    seconds in ``timings``."""
     learner = Learner(cfg, device)
-    paths.create_all_directories(results_dir, game, run_id)
+    mesh = learner.mesh
+    coordinator = distributed.is_coordinator()
+    run_id = cfg.run.run_id or paths.new_run_id()
+    if distributed.is_initialized():
+        run_id = distributed.broadcast_object(run_id, mesh.group_host)
+    results_dir, game = cfg.run.results_dir, cfg.game
     run_dir = paths.run_path(results_dir, game, run_id)
-    with open(os.path.join(run_dir, paths.CONFIG_FILE), "w") as fp:
-        fp.write(to_json(cfg))
+    if coordinator:
+        paths.create_all_directories(results_dir, game, run_id)
+        with open(os.path.join(run_dir, paths.CONFIG_FILE), "w") as fp:
+            fp.write(to_json(cfg))
 
     train_state = learner.train_state
     replay = learner.init_replay()
     training_dir = paths.training_path(results_dir, game, run_id)
-    if checkpoint_exists(training_dir):
+
+    def ring_counts(samples: int):
+        """(samples, filled rows, the smallest shard's rows) over every
+        shard, from this rank's sample count and ring (one collective at
+        dp > 1)."""
+        if learner.dp == 1:
+            size = int(replay.size)
+            return samples, size, size
+        rows = sharded.shard_counts(mesh, replay.size.new_tensor(samples),
+                                    replay.size)
+        return (int(rows[:, 0].sum()), int(rows[:, 1].sum()),
+                int(rows[:, 1].min()))
+
+    # Every rank resumes, or none: the coordinator's view decides.
+    if distributed.broadcast_flag(checkpoint_exists(training_dir),
+                                  mesh.group):
         tree, meta = load_checkpoint(training_dir)
         saved_replay = load_replay(training_dir)
         learner.load_train_state(tree)
         if saved_replay is not None:
-            replay = replay_from_state_dict(saved_replay, learner.device)
-        print(f"Resumed training state at step {meta['steps']} "
-              f"(replay={int(replay.size)})")
+            replay = replay_from_state_dict(
+                saved_replay, learner.device,
+                (mesh.data_index, mesh.dp))
+        _say(f"Resumed training state at step {meta['steps']} "
+             f"(replay={ring_counts(0)[1]})")
 
     # The best net starts as the candidate's; on resume, reload the newest
     # promoted lineage checkpoint.
@@ -359,13 +544,22 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
     latest_best = latest_evaluation_iteration(
         paths.evaluation_path(results_dir, game, run_id)
     )
+    if distributed.is_initialized():
+        # The coordinator's newest iteration, loaded by every rank.
+        number = distributed.broadcast_object(
+            latest_best and latest_best[0], mesh.group_host)
+        latest_best = None if number is None else (
+            number, paths.evaluation_iteration_path(results_dir, game,
+                                                    run_id, number))
     if latest_best is not None:
         best_tree, _ = load_checkpoint(latest_best[1])
         load_jax_variables(learner.best, best_tree["params"],
                            best_tree["batch_stats"])
-        print(f"Restored best model from iteration {latest_best[0]}")
+        _say(f"Restored best model from iteration {latest_best[0]}")
 
-    metrics = MetricsWriter(paths.tensorboard_path(results_dir, game, run_id))
+    metrics = (MetricsWriter(paths.tensorboard_path(results_dir, game,
+                                                    run_id))
+               if coordinator else _NoMetrics())
     iteration = train_state.steps
     total = generations if generations is not None else cfg.loop.generations
     generation = 0
@@ -414,20 +608,39 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
             grace = None
         if heartbeat is not None and watchdog is None:
             watchdog = start_watchdog(heartbeat)
-            print(f"Stall watchdog armed: {cfg.run.watchdog_minutes:g} min")
+            _say(f"Stall watchdog armed: {cfg.run.watchdog_minutes:g} min")
+
+    def host_state():
+        """(train state dict, ring state dict or None) for a checkpoint, on
+        the coordinator (None, None elsewhere). Every rank calls it: the
+        shards' gathers are collectives."""
+        state = learner.full_train_state()
+        ring = None
+        if cfg.loop.checkpoint_replay:
+            if learner.dp > 1:
+                ring = sharded.fetch(replay, mesh)
+            elif coordinator:
+                ring = replay_state_dict(replay)
+        if not coordinator:
+            return None, None
+        return train_state_to_jax(state, cfg.model), ring
 
     # Graceful operator stop: `touch <run_dir>/STOP` finishes the current
-    # generation, writes a final checkpoint, and exits 0.
+    # generation, writes a final checkpoint, and exits 0. Only the
+    # coordinator reads the file; every rank stops at the same generation.
     stop_file = os.path.join(run_dir, "STOP")
-    if os.path.exists(stop_file):
+    if coordinator and os.path.exists(stop_file):
         os.unlink(stop_file)  # already-honored request: resume runs
 
-    print(f"Starting run {run_id} on {learner.device}")
+    where = (f" ({mesh.dp}x{mesh.mp} mesh of data x model ranks)"
+             if mesh.size > 1 else "")
+    _say(f"Starting run {run_id} on {learner.device}{where}")
     try:
         while total == 0 or generation < total:
-            if os.path.exists(stop_file):
-                print(f"STOP requested via {stop_file}; exiting after "
-                      f"{generation} generations (final checkpoint saved)")
+            if distributed.broadcast_flag(
+                    coordinator and os.path.exists(stop_file), mesh.group):
+                _say(f"STOP requested via {stop_file}; exiting after "
+                     f"{generation} generations (final checkpoint saved)")
                 break
             gen_start = time.time()
             batch, stats = learner.generate()
@@ -441,7 +654,8 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
                 int(samples), int(games), int(draws), int(plies))
             generate_time = time.time() - gen_start
             replay = learner.replay_add(replay, batch)
-            replay_total = int(replay.size)
+            # Global counts (the shards' samples and rows at dp > 1).
+            samples, replay_total, min_shard = ring_counts(samples)
             gen_time = time.time() - gen_start
             timing = {"generation": generation, "samples": samples,
                       "generate_s": generate_time,
@@ -455,10 +669,13 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
 
             freq = cfg.loop.samples_checkpoint_frequency
             if freq and (generation + 1) % freq == 0:
-                _save_samples(learner, batch, paths.samples_path(
-                    results_dir, game, run_id, generation))
+                host_batch = (sharded.fetch_batch(batch, mesh)
+                              if learner.dp > 1 else batch)
+                if coordinator:
+                    _save_samples(learner, host_batch, paths.samples_path(
+                        results_dir, game, run_id, generation))
             vfreq = cfg.loop.visualize_frequency
-            if vfreq and (generation + 1) % vfreq == 0:
+            if coordinator and vfreq and (generation + 1) % vfreq == 0:
                 render_start = time.time()
                 _visualize_tree(learner, generation, results_dir, game,
                                 run_id, updated=best_updated)
@@ -467,7 +684,7 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
                 _beat()
             sims = plies * cfg.mcts.simulations
             timing["sims_per_second"] = sims / max(gen_time, 1e-9)
-            print(
+            _say(
                 f"[gen {generation}] {samples} samples from "
                 f"{games} games in {gen_time:.2f}s "
                 f"({sims / max(gen_time, 1e-9):,.0f} sims/s), "
@@ -484,8 +701,11 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
                 iteration,
             )
 
-            # Warm-up gate: the ring must hold min_size rows and a batch.
-            if replay_total >= max(cfg.replay.min_size, cfg.model.batch_size):
+            # Warm-up gate: the ring must hold min_size rows and a batch,
+            # and every shard its share of one.
+            if (replay_total >= max(cfg.replay.min_size,
+                                    cfg.model.batch_size)
+                    and min_shard >= cfg.model.batch_size // learner.dp):
                 # Sample-reuse guardrail (LoopConfig.max_sample_reuse): reuse =
                 # trained samples / fresh samples this generation. Above 1 the
                 # ring turns over slower than the trainer consumes it.
@@ -503,7 +723,7 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
                         ),
                         1,
                     )
-                    print(
+                    _say(
                         f"[gen {generation}] sample reuse "
                         f"{reuse_planned:.2f} > max_sample_reuse="
                         f"{cfg.loop.max_sample_reuse:g}; clamping to "
@@ -511,7 +731,7 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
                     )
                 reuse = train_iters * cfg.model.batch_size / max(samples, 1)
                 if reuse > 1.0 and not cfg.loop.max_sample_reuse > 0:
-                    print(
+                    _say(
                         f"[gen {generation}] WARNING: sample reuse "
                         f"{reuse:.2f} > 1 (replay turnover below 1; set "
                         "loop.max_sample_reuse or lower "
@@ -559,15 +779,14 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
                         # The host copy is made here; the disk IO runs on a
                         # worker thread, joined before run() returns.
                         save_start = time.time()
-                        if pending_save is not None:
-                            pending_save.join()  # one save at a time
-                        pending_save = save_checkpoint_async(
-                            training_dir,
-                            train_state_to_jax(train_state, cfg.model),
-                            learner.learning_rate(),
-                            (replay_state_dict(replay)
-                             if cfg.loop.checkpoint_replay else None),
-                        )
+                        state_tree, ring_tree = host_state()
+                        if coordinator:
+                            if pending_save is not None:
+                                pending_save.join()  # one save at a time
+                            pending_save = save_checkpoint_async(
+                                training_dir, state_tree,
+                                learner.learning_rate(), ring_tree,
+                            )
                         timing["checkpoint_s"] += time.time() - save_start
                     efreq = cfg.arena.evaluation_frequency
                     if efreq and iteration % efreq == 0:
@@ -587,7 +806,7 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
                         ]).tolist()
                         promoted = bool(promoted)
                         summary["last_arena_score"] = score
-                        print(
+                        _say(
                             f"[iter {iteration}] arena score={score:.3f} "
                             f"(+{int(wins)}/-{int(losses)}/="
                             f"{int(arena_draws)}) promoted={promoted}"
@@ -596,7 +815,7 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
                                        iteration)
                         timing["arena_s"] += time.time() - arena_start
                         solver_score = None
-                        if solver_eval_ran:
+                        if solver_eval_ran and coordinator:
                             # Exact solves on the host can take minutes:
                             # live compute, so the liveness file is kept
                             # fresh for a bounded window.
@@ -619,14 +838,19 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
                             metrics.scalar("evaluation/solver_score",
                                            solver_score, iteration)
                         # The veto is decided before the promotion, which
-                        # copies in place and cannot be undone.
+                        # copies in place and cannot be undone; the
+                        # coordinator holds the scores and decides for all.
                         margin = cfg.arena.solver_score_veto_margin
                         if (promoted and cfg.arena.solver_score_veto
-                                and solver_score is not None
-                                and best_solver_score is not None
-                                and solver_score < best_solver_score - margin):
+                                and solver_eval_ran
+                                and distributed.broadcast_flag(
+                                    solver_score is not None
+                                    and best_solver_score is not None
+                                    and solver_score
+                                    < best_solver_score - margin,
+                                    mesh.group)):
                             promoted = False
-                            print(
+                            _say(
                                 f"[iter {iteration}] solver-score veto: "
                                 f"candidate {solver_score:.3f} < best "
                                 f"{best_solver_score:.3f} - {margin}"
@@ -642,13 +866,15 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
                         # evaluation/iteration_N: the candidate when
                         # promoted, the incumbent otherwise.
                         save_start = time.time()
-                        save_checkpoint(
-                            paths.evaluation_iteration_path(
-                                results_dir, game, run_id, iteration
-                            ),
-                            learner.winner_state_dict(),
-                            learner.learning_rate(),
-                        )
+                        winner = learner.winner_state_dict()
+                        if coordinator:
+                            save_checkpoint(
+                                paths.evaluation_iteration_path(
+                                    results_dir, game, run_id, iteration
+                                ),
+                                winner,
+                                learner.learning_rate(),
+                            )
                         timing["checkpoint_s"] += time.time() - save_start
                         _beat()
                         if arena_grace is not None:
@@ -661,13 +887,10 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
         # Final checkpoint: the loop's exit state is always resumable, even
         # when the stop did not land on a checkpoint_frequency boundary.
         if summary["iterations"] > 0:
-            save_checkpoint(
-                training_dir,
-                train_state_to_jax(train_state, cfg.model),
-                learner.learning_rate(),
-                (replay_state_dict(replay) if cfg.loop.checkpoint_replay
-                 else None),
-            )
+            state_tree, ring_tree = host_state()
+            if coordinator:
+                save_checkpoint(training_dir, state_tree,
+                                learner.learning_rate(), ring_tree)
     finally:
         # Also on an abort (a non-finite loss): nothing outlives the run.
         if watchdog is not None:
@@ -683,6 +906,9 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
 
 
 def main(argv=None):
+    # One process: nothing to join. Under torchrun every rank joins the
+    # process group and takes its card first.
+    distributed.initialize()
     overrides = parse_cli_overrides(sys.argv[1:] if argv is None else argv)
     run(apply_overrides(Config(), overrides))
 

@@ -32,6 +32,11 @@ from custom_alphazero_tpu_torch.models.losses import (
     value_loss,
 )
 from custom_alphazero_tpu_torch.models.policy_value import PolicyValueNet
+from custom_alphazero_tpu_torch.parallel.distributed import all_reduce
+from custom_alphazero_tpu_torch.parallel.mesh import (
+    shard_owners,
+    sharded_square_sum,
+)
 
 
 @dataclass
@@ -86,9 +91,37 @@ def init_train_state(num_actions: int, cfg: ModelConfig,
     return new_train_state(net)
 
 
+def _average(net, grads, terms, mesh):
+    """Gradients and loss terms averaged over the mesh's ranks, as one
+    program over the global batch computes them (local batches are equal):
+    one flat all-reduce over the mesh for the replicated leaves and the
+    terms (the ranks of a data row hold equal copies of them), one over the
+    data group for a sharded layer's rows."""
+    owners = shard_owners(net)
+    params = list(net.parameters())
+    whole = [i for i, p in enumerate(params) if id(p) not in owners]
+    shards = [i for i, p in enumerate(params) if id(p) in owners]
+    out = list(grads)
+
+    def mean(indices, tail, group, ranks):
+        flat = all_reduce(torch.cat([grads[i].reshape(-1) for i in indices]
+                                    + [tail]), group) / ranks
+        pieces = flat.split([grads[i].numel() for i in indices]
+                            + [tail.numel()])
+        for i, piece in zip(indices, pieces):
+            out[i] = piece.view_as(grads[i])
+        return pieces[-1]
+
+    terms = mean(whole, terms, mesh.group, mesh.size)
+    if shards and mesh.dp > 1:
+        mean(shards, terms[:0], mesh.data_group, mesh.dp)
+    return out, terms
+
+
 def make_train_step(
     cfg: ModelConfig, aux_value_weight: float = 0.0,
     aux_value_batch: int = 256, aux_policy_weight: float = 0.0,
+    mesh=None,
 ) -> Callable[..., Tuple[TrainState, TrainMetrics]]:
     """Build ``train_step(state, obs, target_pi, target_z, generator=None,
     aux_obs=None, aux_z=None, aux_pi=None, aux_indices=None)``.
@@ -99,7 +132,16 @@ def make_train_step(
     draw); with ``aux_policy_weight > 0`` the same subset adds ``weight *
     CE(policy(rows), aux_pi[rows])``. The auxiliary forward runs in eval
     mode on the same parameters: gradients flow through it, and it leaves
-    the BatchNorm running statistics alone."""
+    the BatchNorm running statistics alone.
+
+    With a ``mesh`` of more than one rank (parallel/mesh.py) the step is
+    the data-parallel one: ``obs`` is this rank's share of the global
+    batch, the net's BatchNorm layers reduce over the data group
+    (``policy_value.data_parallel``), gradients and loss terms are averaged
+    over the ranks, and the returned terms are the global ones; the
+    auxiliary rows must be the same on every rank. A sharded layer's part
+    of the L2 term and of the clip's norm is summed over the model
+    group."""
     use_aux = aux_value_weight > 0.0 or aux_policy_weight > 0.0
 
     def train_step(state: TrainState, obs, target_pi, target_z,
@@ -126,19 +168,37 @@ def make_train_step(
         lp = policy_loss(logits, target_pi)
         lv = value_loss(value, target_z)
         l2 = l2_penalty(kernel_parameters(net), cfg.l2)
+        shard_sq = (sharded_square_sum(net, params) if mesh is not None
+                    else None)
+        if shard_sq is not None:
+            # The other shards' part of the value; the gradient is local.
+            l2 = l2 + cfg.l2 * (all_reduce(shard_sq.detach().clone(),
+                                           mesh.model_group)
+                                - shard_sq.detach())
         loss = (lp + lv + l2 + aux_value_weight * laux
                 + aux_policy_weight * laux_pi)
         grads = torch.autograd.grad(loss, params)
+        terms = (loss, lp, lv, l2, laux, laux_pi)
+        if mesh is not None and mesh.size > 1:
+            grads, terms = _average(net, grads, torch.stack(terms).detach(),
+                                    mesh)
+            terms = terms.unbind()
         if cfg.grad_clip_norm > 0:
-            grads = clip_by_global_norm(grads, cfg.grad_clip_norm)
+            norm = None
+            if shard_sq is not None:
+                sq = [g.square().sum() for g in grads]
+                shard = sharded_square_sum(net, grads)
+                norm = torch.sqrt(sum(sq) - shard + all_reduce(
+                    shard.clone(), mesh.model_group))
+            grads = clip_by_global_norm(grads, cfg.grad_clip_norm, norm)
         lr = learning_rate(cfg, state.steps)
         sgd_momentum_update(params, state.trace, grads, lr, cfg.momentum)
         state.steps += 1
+        loss, lp, lv, l2, laux, laux_pi = (t.detach() for t in terms)
         metrics = TrainMetrics(
-            loss=loss.detach(), policy_loss=lp.detach(),
-            value_loss=lv.detach(), l2=l2.detach(), learning_rate=lr,
-            steps=state.steps, solver_value_loss=laux.detach(),
-            solver_policy_loss=laux_pi.detach(),
+            loss=loss, policy_loss=lp, value_loss=lv, l2=l2,
+            learning_rate=lr, steps=state.steps, solver_value_loss=laux,
+            solver_policy_loss=laux_pi,
         )
         return state, metrics
 

@@ -7,6 +7,7 @@ import os
 import threading
 import time
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -326,9 +327,10 @@ def test_loop_with_aux_targets(tmp_path, policy_weight):
     ({"mcts.reuse_tree": "true"}, "Subtree reuse"),
 ])
 def test_unported_settings_raise_at_construction(tmp_path, overrides, item):
-    """Multi-GPU raises before anything starts. Chess, Gumbel search and
-    subtree reuse are ported: the Learner builds them, and with reuse it
-    generates."""
+    """Every setting is ported. Chess, Gumbel search and subtree reuse: the
+    Learner builds them, and with reuse it generates. Multi-GPU: a mesh
+    larger than the one process raises JAX's ``make_mesh`` ValueError
+    before anything starts."""
     cfg = _tiny_cfg(tmp_path, "np", 1, **overrides)
     if item == "Subtree reuse":
         cfg = _tiny_cfg(tmp_path, "np", 1, **overrides,
@@ -343,10 +345,20 @@ def test_unported_settings_raise_at_construction(tmp_path, overrides, item):
                                            else 7)
         assert learner.cfg.mcts.use_gumbel == (item == "Gumbel search")
         return
-    with pytest.raises(NotImplementedError, match=item) as raised:
+    from custom_alphazero_tpu.parallel.mesh import make_mesh
+
+    # The mesh JAX's Learner asks for at one device: the data axis set, or
+    # the automatic one (1 when the model axis takes more than there is).
+    with pytest.raises(ValueError) as jax_raised:
+        make_mesh(jax_config.MeshConfig(
+            data_parallelism=cfg.mesh.data_parallelism or 1,
+            model_parallelism=cfg.mesh.model_parallelism),
+            jax.devices()[:1])
+    assert "devices, have 1" in str(jax_raised.value)
+    with pytest.raises(ValueError) as raised:
         Learner(cfg, device="cpu")
-    assert "ROADMAP.md" in str(raised.value)
-    with pytest.raises(NotImplementedError, match=item):
+    assert str(raised.value) == str(jax_raised.value)
+    with pytest.raises(ValueError, match="devices, have 1"):
         run(cfg, device="cpu")
     assert not os.path.exists(tmp_path / cfg.game)  # nothing was started
 

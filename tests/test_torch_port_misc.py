@@ -112,7 +112,11 @@ def test_port_imports_no_jax():
                     "tools/chess_inloop_bench.py", "serving/__init__.py",
                     "serving/server.py", "serving/client.py",
                     "serving/__main__.py", "tools/profile.py",
-                    "tools/inloop_bench.py", "tools/gumbel_probe.py"}
+                    "tools/inloop_bench.py", "tools/gumbel_probe.py",
+                    "parallel/__init__.py", "parallel/distributed.py",
+                    "parallel/mesh.py", "parallel/sharded.py",
+                    "parallel/launch.py", "tools/scaling.py",
+                    "tools/multihost_proxy.py", "tools/dryrun_multigpu.py"}
     assert learner_side <= {path.relative_to(package).as_posix()
                             for path in files[:-1]}
     for path in files:
