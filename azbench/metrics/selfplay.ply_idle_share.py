@@ -1,0 +1,12 @@
+"""Percent of the traced generation's wall (the base of
+``selfplay.idle_share``) during which the device was idle while the host's
+innermost open program span was ``selfplay.generate``: the ply's own code
+(move sampling, env step, observation), the search's reset and the targets
+at the end (azbench/spans.py). Nothing without the trace or the program's
+spans."""
+
+from azbench import spans
+
+
+def read(run):
+    return spans.idle_share(run, "selfplay.generate")

@@ -42,6 +42,7 @@ from custom_alphazero_tpu_torch.envs.connect_n import (
     ConnectNState,
     has_line,
 )
+from custom_alphazero_tpu_torch.io import trace
 from custom_alphazero_tpu_torch.ops import _build
 from custom_alphazero_tpu_torch.runtime.evaluate import EvaluateFn
 from custom_alphazero_tpu_torch.search.mcts import (
@@ -684,21 +685,26 @@ class FusedConnectNSearchV2:
         static = self.static(bsz, simulations)
         self.reset(static, root_states)
         if self.cfg.use_dirichlet:
-            plan = None if gamma is not None else self._mcts.noise_plan(
-                generator)
-            for w in range(simulations):
-                static.buffers.gamma[w] = self._mcts.root_gamma(
-                    plan, gamma, w, bsz, dev)
+            with trace.span("search.noise"):
+                plan = None if gamma is not None else self._mcts.noise_plan(
+                    generator)
+                for w in range(simulations):
+                    static.buffers.gamma[w] = self._mcts.root_gamma(
+                        plan, gamma, w, bsz, dev)
 
         if graph:
+            # The first search of a (batch, simulations) captures the graph
+            # here, outside the span of the waves.
             wave = self._captured_wave(static, evaluate_fn, geom, root_states)
-            for _ in range(simulations):
-                wave.replay()
-                self._wave_step.launches += 1
-        else:
-            for _ in range(simulations):
-                self._wave_step(static.buffers, static.carry, geom)
-                self._evaluate(static, evaluate_fn)
-        # The drain wave: back up the last leaf; no net.
-        self._wave_step(static.buffers, static.carry, geom)
+        with trace.span("search.waves"):
+            if graph:
+                for _ in range(simulations):
+                    wave.replay()
+                    self._wave_step.launches += 1
+            else:
+                for _ in range(simulations):
+                    self._wave_step(static.buffers, static.carry, geom)
+                    self._evaluate(static, evaluate_fn)
+            # The drain wave: back up the last leaf; no net.
+            self._wave_step(static.buffers, static.carry, geom)
         return self._root_stats(static.carry)

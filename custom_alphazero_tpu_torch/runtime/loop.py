@@ -55,7 +55,6 @@ import dataclasses
 import math
 import os
 import sys
-import time
 from typing import Optional
 
 import numpy as np
@@ -71,6 +70,7 @@ from custom_alphazero_tpu_torch.config import (
 )
 from custom_alphazero_tpu_torch.envs.chess.engine import Chess
 from custom_alphazero_tpu_torch.envs.connect_n import ConnectN
+from custom_alphazero_tpu_torch.io import trace
 from custom_alphazero_tpu_torch.io.checkpoint import (
     checkpoint_exists,
     latest_evaluation_iteration,
@@ -495,7 +495,8 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
     With several ranks every rank calls this with the same ``cfg``; the
     results directory is read by every rank (resume) and written by the
     coordinator only. The summary is the same on every rank but for the
-    seconds in ``timings``."""
+    seconds in ``timings``: per generation, the sums of its ``loop.*``
+    spans (io/trace.py)."""
     learner = Learner(cfg, device)
     mesh = learner.mesh
     coordinator = distributed.is_coordinator()
@@ -642,24 +643,25 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
                 _say(f"STOP requested via {stop_file}; exiting after "
                      f"{generation} generations (final checkpoint saved)")
                 break
-            gen_start = time.time()
-            batch, stats = learner.generate()
-            # One read for the generation's stats.
-            samples, games, draws, plies, mean_game_length = torch.stack([
-                batch.valid.sum().float(), stats.games.float(),
-                stats.draws.float(), stats.plies.float(),
-                stats.mean_game_length.float(),
-            ]).tolist()
+            with trace.span("loop.generate") as generate_span:
+                batch, stats = learner.generate()
+                # One read for the generation's stats.
+                (samples, games, draws, plies,
+                 mean_game_length) = torch.stack([
+                     batch.valid.sum().float(), stats.games.float(),
+                     stats.draws.float(), stats.plies.float(),
+                     stats.mean_game_length.float(),
+                 ]).tolist()
             samples, games, draws, plies = (
                 int(samples), int(games), int(draws), int(plies))
-            generate_time = time.time() - gen_start
-            replay = learner.replay_add(replay, batch)
-            # Global counts (the shards' samples and rows at dp > 1).
-            samples, replay_total, min_shard = ring_counts(samples)
-            gen_time = time.time() - gen_start
+            with trace.span("loop.replay") as replay_span:
+                replay = learner.replay_add(replay, batch)
+                # Global counts (the shards' samples and rows at dp > 1).
+                samples, replay_total, min_shard = ring_counts(samples)
+            gen_time = generate_span.seconds + replay_span.seconds
             timing = {"generation": generation, "samples": samples,
-                      "generate_s": generate_time,
-                      "replay_s": gen_time - generate_time, "train_s": 0.0,
+                      "generate_s": generate_span.seconds,
+                      "replay_s": replay_span.seconds, "train_s": 0.0,
                       "arena_s": 0.0, "solver_score_s": 0.0,
                       "checkpoint_s": 0.0, "render_s": 0.0,
                       "train_iterations": 0}
@@ -676,11 +678,11 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
                         results_dir, game, run_id, generation))
             vfreq = cfg.loop.visualize_frequency
             if coordinator and vfreq and (generation + 1) % vfreq == 0:
-                render_start = time.time()
-                _visualize_tree(learner, generation, results_dir, game,
-                                run_id, updated=best_updated)
+                with trace.span("loop.render") as render_span:
+                    _visualize_tree(learner, generation, results_dir, game,
+                                    run_id, updated=best_updated)
                 best_updated = False
-                timing["render_s"] = time.time() - render_start
+                timing["render_s"] = render_span.seconds
                 _beat()
             sims = plies * cfg.mcts.simulations
             timing["sims_per_second"] = sims / max(gen_time, 1e-9)
@@ -740,15 +742,15 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
                 metrics.scalar("train/sample_reuse", reuse, iteration)
                 timing["train_iterations"] = train_iters
                 for _ in range(train_iters):
-                    step_start = time.time()
-                    m = learner.train_step(*learner.replay_sample(replay))
-                    iteration = m.steps
-                    # One read for the step's loss terms.
-                    loss, lp, lv, laux, laux_pi = torch.stack([
-                        m.loss, m.policy_loss, m.value_loss,
-                        m.solver_value_loss, m.solver_policy_loss,
-                    ]).tolist()
-                    timing["train_s"] += time.time() - step_start
+                    with trace.span("loop.train") as train_span:
+                        m = learner.train_step(*learner.replay_sample(replay))
+                        iteration = m.steps
+                        # One read for the step's loss terms.
+                        loss, lp, lv, laux, laux_pi = torch.stack([
+                            m.loss, m.policy_loss, m.value_loss,
+                            m.solver_value_loss, m.solver_policy_loss,
+                        ]).tolist()
+                    timing["train_s"] += train_span.seconds
                     if not math.isfinite(loss):
                         # SGD momentum never recovers from a non-finite update;
                         # every later step (and any self-play from these
@@ -778,61 +780,63 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
                     if cfreq and iteration % cfreq == 0:
                         # The host copy is made here; the disk IO runs on a
                         # worker thread, joined before run() returns.
-                        save_start = time.time()
-                        state_tree, ring_tree = host_state()
-                        if coordinator:
-                            if pending_save is not None:
-                                pending_save.join()  # one save at a time
-                            pending_save = save_checkpoint_async(
-                                training_dir, state_tree,
-                                learner.learning_rate(), ring_tree,
-                            )
-                        timing["checkpoint_s"] += time.time() - save_start
+                        with trace.span("loop.checkpoint") as save_span:
+                            state_tree, ring_tree = host_state()
+                            if coordinator:
+                                if pending_save is not None:
+                                    pending_save.join()  # one at a time
+                                pending_save = save_checkpoint_async(
+                                    training_dir, state_tree,
+                                    learner.learning_rate(), ring_tree,
+                                )
+                        timing["checkpoint_s"] += save_span.seconds
                     efreq = cfg.arena.evaluation_frequency
                     if efreq and iteration % efreq == 0:
-                        arena_start = time.time()
-                        if first_arena and cfg.run.compile_grace_minutes > 0:
-                            # The first arena sets up too (its search's graph
-                            # captures): its own bounded liveness grace.
-                            arena_grace = CompileGraceToucher(
-                                cfg.run.compile_grace_minutes * 60.0
+                        with trace.span("loop.arena") as arena_span:
+                            if (first_arena
+                                    and cfg.run.compile_grace_minutes > 0):
+                                # The first arena sets up too (its search's
+                                # graph captures): its own bounded liveness
+                                # grace.
+                                arena_grace = CompileGraceToucher(
+                                    cfg.run.compile_grace_minutes * 60.0
+                                )
+                            result = learner.run_arena()
+                            (score, promoted, wins, losses,
+                             arena_draws) = torch.stack([
+                                result.score, result.promote.float(),
+                                result.wins.float(), result.losses.float(),
+                                result.draws.float(),
+                            ]).tolist()
+                            promoted = bool(promoted)
+                            summary["last_arena_score"] = score
+                            _say(
+                                f"[iter {iteration}] arena score={score:.3f} "
+                                f"(+{int(wins)}/-{int(losses)}/="
+                                f"{int(arena_draws)}) promoted={promoted}"
                             )
-                        result = learner.run_arena()
-                        (score, promoted, wins, losses,
-                         arena_draws) = torch.stack([
-                            result.score, result.promote.float(),
-                            result.wins.float(), result.losses.float(),
-                            result.draws.float(),
-                        ]).tolist()
-                        promoted = bool(promoted)
-                        summary["last_arena_score"] = score
-                        _say(
-                            f"[iter {iteration}] arena score={score:.3f} "
-                            f"(+{int(wins)}/-{int(losses)}/="
-                            f"{int(arena_draws)}) promoted={promoted}"
-                        )
-                        metrics.scalar("evaluation/winning_score", score,
-                                       iteration)
-                        timing["arena_s"] += time.time() - arena_start
+                            metrics.scalar("evaluation/winning_score", score,
+                                           iteration)
+                        timing["arena_s"] += arena_span.seconds
                         solver_score = None
                         if solver_eval_ran and coordinator:
                             # Exact solves on the host can take minutes:
                             # live compute, so the liveness file is kept
                             # fresh for a bounded window.
-                            score_start = time.time()
-                            score_grace = (
-                                CompileGraceToucher(15 * 60.0)
-                                if cfg.run.compile_grace_minutes > 0
-                                else None
-                            )
-                            try:
-                                solver_score = strength.score_arena_log(
-                                    result.log)
-                            finally:
-                                if score_grace is not None:
-                                    score_grace.stop()
-                            timing["solver_score_s"] += (time.time()
-                                                         - score_start)
+                            with trace.span(
+                                    "loop.solver_score") as score_span:
+                                score_grace = (
+                                    CompileGraceToucher(15 * 60.0)
+                                    if cfg.run.compile_grace_minutes > 0
+                                    else None
+                                )
+                                try:
+                                    solver_score = strength.score_arena_log(
+                                        result.log)
+                                finally:
+                                    if score_grace is not None:
+                                        score_grace.stop()
+                            timing["solver_score_s"] += score_span.seconds
                             print(f"[iter {iteration}] solver score="
                                   f"{solver_score:.3f}")
                             metrics.scalar("evaluation/solver_score",
@@ -865,17 +869,17 @@ def run(cfg: Config, generations: Optional[int] = None, device=None) -> dict:
                         # The *winner*'s weights land in
                         # evaluation/iteration_N: the candidate when
                         # promoted, the incumbent otherwise.
-                        save_start = time.time()
-                        winner = learner.winner_state_dict()
-                        if coordinator:
-                            save_checkpoint(
-                                paths.evaluation_iteration_path(
-                                    results_dir, game, run_id, iteration
-                                ),
-                                winner,
-                                learner.learning_rate(),
-                            )
-                        timing["checkpoint_s"] += time.time() - save_start
+                        with trace.span("loop.checkpoint") as save_span:
+                            winner = learner.winner_state_dict()
+                            if coordinator:
+                                save_checkpoint(
+                                    paths.evaluation_iteration_path(
+                                        results_dir, game, run_id, iteration
+                                    ),
+                                    winner,
+                                    learner.learning_rate(),
+                                )
+                        timing["checkpoint_s"] += save_span.seconds
                         _beat()
                         if arena_grace is not None:
                             arena_grace.stop()

@@ -39,6 +39,7 @@ from custom_alphazero_tpu_torch.config import (
     resolve_device,
 )
 from custom_alphazero_tpu_torch.envs.core import Env
+from custom_alphazero_tpu_torch.io import trace
 from custom_alphazero_tpu_torch.ops import fused_mcts_v2
 from custom_alphazero_tpu_torch.replay.codec import PackedObs
 from custom_alphazero_tpu_torch.runtime.evaluate import EvaluateFn
@@ -138,6 +139,10 @@ def make_selfplay_fn(env: Env, mcts_cfg: MCTSConfig,
 
     def generate(evaluate_fn: EvaluateFn, generator: torch.Generator,
                  batch_size: int):
+        with trace.span("selfplay.generate"):
+            return play(evaluate_fn, generator, batch_size)
+
+    def play(evaluate_fn, generator, batch_size):
         fresh = env.init(batch_size, device)
         states = fresh
         if reuse:

@@ -7,6 +7,8 @@
   one self-play generation, written as a Chrome trace (chrome://tracing,
   Perfetto) where JAX writes an xprof trace. A first generation runs
   before the trace, so the search's CUDA graph capture falls outside it.
+  The trace carries the program's spans (io/trace.py: the generation, and
+  each ply's root-noise draws and waves) as host ops of their names.
 
 CLI:  python -m custom_alphazero_tpu_torch.tools.profile [--trace-dir=DIR]
         [--device=cpu]
