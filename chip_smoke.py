@@ -181,11 +181,24 @@ Phases (any failed check raises and exits non-zero):
    resume at dp=2 at the same step and ring size. Then, in the same two
    ranks, ``tools.dryrun_multigpu``'s dry run (mp=2, its five lines). Both
    ranks share one card: no figure here is a scaling figure.
-26. The kernels' JSON line, the card's line, and the result line.
+26. The fused net (ops/fused_net.py, csrc/fused_net.cu): its pack kernel
+    bit-equal to the plain layout, each conv layer and the heads on the
+    kernel's own inputs against the plain version, then whole forwards, at
+    c4 B=1,024 and 256 (the c4-r5 net) and chess B=128 (the chess-r5 net,
+    118 input planes); a promote between two replays of one captured
+    search graph gives a fresh capture's results, on the fused and the
+    module path; the forward's device time beside its bound, the plain
+    version's and the module path's (cuDNN), and each kernel's. The
+    kernels' line reports the fused net's launches counted from zero over
+    main-path runs: phase 11's arena, phase 12's ``run()`` and this
+    phase's captured search, each held to its forwards
+    (``FusedNetCount``).
+27. The kernels' JSON line, the card's line, and the result line.
 
 ``python3 chip_smoke.py --launch-shapes`` runs a tuning aid in place of the
 phases: K1 built with 1, 2, 4 and 8 games (warps) per block, each checked
-and timed as in phase 3.
+and timed as in phase 3. ``python3 chip_smoke.py --fused-net`` runs phase
+26 alone.
 """
 
 from __future__ import annotations
@@ -920,6 +933,68 @@ def gradient_errors(reference, trace_before, momentum: float, others):
     return leaves
 
 
+class FusedNetCount:
+    """The fused net's launches over a run of the main path, from zero:
+    each counter of ops/fused_net.py set to 0 on entry, and the forwards
+    that ``make_evaluate_fn`` sent through ``FusedForward`` counted as
+    recorded (inside a CUDA graph capture) or eager, beside the evaluations
+    it sent to the module path on CUDA and the plain version's calls.
+    ``check(name, depth)`` holds the counters to the forwards: one pack,
+    1 + 2 x depth convs and one heads launch each, no module-path
+    evaluation on the card, no plain forward."""
+
+    def __enter__(self):
+        from custom_alphazero_tpu_torch.ops import fused_net
+
+        self.fused_net = fused_net
+        fused_net.pack.launches = 0
+        fused_net.conv.launches = 0
+        fused_net.heads.launches = 0
+        self.recorded = self.eager = self.module = 0
+        self.plain = fused_net.forward_plain.calls
+        self._call = fused_net.FusedForward.__call__
+        self._applies = fused_net.applies
+        count = self
+
+        def call(forward, obs):
+            if torch.cuda.is_current_stream_capturing():
+                count.recorded += 1
+            else:
+                count.eager += 1
+            return count._call(forward, obs)
+
+        def applies(net, obs):
+            taken = count._applies(net, obs)
+            count.module += int(not taken and obs.device.type == "cuda")
+            return taken
+
+        fused_net.FusedForward.__call__ = call
+        fused_net.applies = applies
+        return self
+
+    def __exit__(self, *exc):
+        self.fused_net.FusedForward.__call__ = self._call
+        self.fused_net.applies = self._applies
+        self.plain = self.fused_net.forward_plain.calls - self.plain
+        return False
+
+    def check(self, name: str, depth: int) -> dict:
+        fn = self.fused_net
+        forwards = self.recorded + self.eager
+        counts = {"pack": fn.pack.launches, "conv": fn.conv.launches,
+                  "heads": fn.heads.launches,
+                  "forwards_recorded": self.recorded,
+                  "forwards_eager": self.eager}
+        check(counts["pack"] == forwards == counts["heads"]
+              and counts["conv"] == (1 + 2 * depth) * forwards,
+              f"{name}: fused net launches {counts} do not match its "
+              f"forwards")
+        check(self.module == 0, f"{name}: {self.module} evaluations took "
+              f"the module path on the card")
+        check(self.plain == 0, f"{name}: the plain forward ran")
+        return counts
+
+
 def arena_phase(env, mcts_cfg, net, gen, device):
     """Phase 11; returns K1's launches in one arena."""
     from custom_alphazero_tpu_torch.config import ArenaConfig
@@ -958,16 +1033,25 @@ def arena_phase(env, mcts_cfg, net, gen, device):
         f"simulations): root visits and value sums bit-equal between the "
         f"graph's replays and host launches")
 
-    seconds = []
+    seconds, fused_counts = [], []
     for _ in range(2):  # the second arena replays the first one's graphs
         captures = search_cls.captures
         fused_mcts_v2.wave_step.launches = 0
         fused_mcts_v2.wave_step_reference.calls = 0
-        result, ms = timed(
-            lambda: arena(candidate, incumbent, gen, ARENA_GAMES))
+        with FusedNetCount() as count:
+            result, ms = timed(
+                lambda: arena(candidate, incumbent, gen, ARENA_GAMES))
         seconds.append(ms / 1e3)
         captures = search_cls.captures - captures
         launches = fused_mcts_v2.wave_step.launches
+        # Both nets forward their half of every evaluation; all of an
+        # arena's evaluations are a capture's warm-up waves and its
+        # recorded wave, and its replays launch nothing from the host.
+        fused_counts.append(count.check("arena", len(net.blocks)))
+        check((count.recorded, count.eager) == (
+                  2 * captures, 2 * captures * fused_mcts_v2.WARMUP_WAVES),
+              f"arena {len(seconds)}: fused forwards {fused_counts[-1]}, "
+              f"{captures} captures")
         expected = MAX_PLIES * (SIMS + 1) + (
             captures * fused_mcts_v2.WARMUP_WAVES)
         check(launches == expected, f"arena: kernel launched {launches} "
@@ -996,8 +1080,8 @@ def arena_phase(env, mcts_cfg, net, gen, device):
             f"x {SIMS} sims in {seconds[-1]:.2f} s: +{wins}/-{losses}/="
             f"{draws}, score {float(result.score):.3f}, promote "
             f"{bool(result.promote)}; {launches} kernel launches, "
-            f"{captures} graph captures")
-    return launches
+            f"{captures} graph captures; fused net {fused_counts[-1]}")
+    return launches, fused_counts[0]
 
 
 class Tee:
@@ -1094,7 +1178,8 @@ def learner_phase(device):
         strength.score_arena_log = counted
         sys.stdout = tee
         t0 = time.perf_counter()
-        summary = run(cfg, generations=2)
+        with FusedNetCount() as fused_count:
+            summary = run(cfg, generations=2)
         wall = time.perf_counter() - t0
         launches = fused_mcts_v2.wave_step.launches
         captures = fused_mcts_v2.FusedConnectNSearchV2.captures - captures
@@ -1181,12 +1266,19 @@ def learner_phase(device):
                 + captures * fused_mcts_v2.WARMUP_WAVES)
     check(launches == expected, f"learner: kernel launched {launches} "
           f"times, expected {expected}")
+    # The fused net: recorded once in self-play's graph (one net) and in
+    # each arena graph (two nets, a half each); eager in those captures'
+    # warm-up waves, and in the renders' general search.
+    fused_counts = fused_count.check("learner", cfg.model.depth)
+    check(fused_count.recorded == 1 + 2 * 2
+          and fused_count.eager >= (1 + 2 * 2) * fused_mcts_v2.WARMUP_WAVES,
+          f"learner: fused forwards {fused_counts}")
     log(f"learner: 2 generations and 2 arenas in {wall:.1f} s, "
         f"{summary['promotions']} promotions, steps {meta0['steps']} -> "
         f"{meta['steps']}, checkpoint restored with a matching hash; "
         f"{launches} kernel launches; {captures} graph captures (self-play "
-        f"1, arena 2); renders {renders}")
-    return launches, run_copy
+        f"1, arena 2); renders {renders}; fused net {fused_counts}")
+    return (launches, fused_counts), run_copy
 
 
 def script_flags(path: str) -> list:
@@ -3128,6 +3220,281 @@ def multi_gpu_phase(card_step, obs, device) -> list:
     return launches
 
 
+# Phase 26: the fused net's kernels against the plain version. Each layer
+# rounds its output to bf16 once in both; float32 sums in another order move
+# a rounding by one bf16 step (2**-8 relative) now and then, and that moves
+# later layers. Limits: a trunk layer's output within 2 bf16 steps of its
+# magnitude, the head features and the outputs as below.
+FUSED_LAYER_STEPS = 2.0
+FUSED_HEAD_RTOL = 1e-5
+FUSED_OUTPUT_LIMIT = 5e-2
+FUSED_GRAPH_SIMS = 32
+
+
+def fused_flops_and_bytes(net, bsz: int, hw) -> tuple:
+    """(FLOPs, bytes) of one fused forward from its shapes: each conv's
+    2 x M x N x K, the heads and dense layers; each layer's input read once
+    and its output written once, bf16 in the trunk, the residual block's
+    input read again, float32 observations, weights and head features."""
+    from custom_alphazero_tpu_torch.ops import fused_net
+
+    h, w = hw
+    m = bsz * h * w
+    flops = bytes_ = 0
+    for block in fused_net.trunk_convs(net):
+        cout, cin, kh, kw = block.conv.weight.shape
+        flops += 2 * m * cout * cin * kh * kw
+        bytes_ += 4 * cout * cin * kh * kw + 2 * m * cout
+    bytes_ += 4 * m * net.stem.conv.in_channels + 2 * m * net.cfg.filters * (
+        2 * len(net.blocks))
+    heads = (net.policy_conv.conv.out_channels
+             + net.value_conv.conv.out_channels)
+    flops += 2 * m * heads * net.cfg.filters
+    bytes_ += 2 * m * net.cfg.filters + 4 * m * heads
+    for dense in (net.policy_dense, net.value_dense1, net.value_dense2):
+        flops += 2 * bsz * dense.in_features * dense.out_features
+        bytes_ += 4 * dense.weight.numel()
+    return flops, bytes_
+
+
+def fused_net_phase(device) -> dict:
+    """Phase 26: ops/fused_net.py's kernels on the card. Each kernel against
+    its plain version (the pack bit-equal, every conv layer and the heads
+    on the kernel's own inputs, then whole forwards) at c4 B=1,024 and 256
+    and chess B=128; a promote between two replays of a captured search
+    graph changes its results as it changes the module path's; times."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from custom_alphazero_tpu_torch.config import (
+        ConnectNConfig,
+        MCTSConfig,
+        ModelConfig,
+    )
+    from custom_alphazero_tpu_torch.envs.connect_n import ConnectN
+    from custom_alphazero_tpu_torch.io.checkpoint import load_jax_checkpoint
+    from custom_alphazero_tpu_torch.models.convert import from_jax_variables
+    from custom_alphazero_tpu_torch.ops import fused_mcts_v2, fused_net
+    from custom_alphazero_tpu_torch.ops.fused_mcts_v2 import (
+        FusedConnectNSearchV2,
+    )
+    from custom_alphazero_tpu_torch.runtime.evaluate import make_evaluate_fn
+
+    widths = dict(depth=4, filters=128, value_hidden=256)
+    params, batch_stats, meta = load_jax_checkpoint(CHECKPOINT)
+    net = from_jax_variables(params, batch_stats, 7, ModelConfig(**widths))
+    env = ConnectN(ConnectNConfig())
+    gen = torch.Generator(device=device).manual_seed(26)
+    chess, _ = chess_net(chess_config(), "bfloat16", device)
+    chess_obs = (torch.rand((128, 8, 8, 118), generator=gen, device=device)
+                 < 0.1).float()
+    cases = [("c4 B=1024", net, env.observe(random_positions(
+                  env, 1024, 30, gen, device))),
+             ("c4 B=256", net, env.observe(random_positions(
+                  env, 256, 30, gen, device))),
+             ("chess B=128", chess, chess_obs)]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def gap(got, want):
+        return max((g - w).abs().max().item() for g, w in zip(got, want))
+
+    def layer_steps(got, want):
+        """The largest gap in bf16 steps (2**-8) of the layer's magnitude."""
+        scale = want.float().abs().max().item() * 2.0 ** -8
+        return (got.float() - want.float()).abs().max().item() / scale
+
+    compile_s = None
+    for label, case_net, obs in cases:
+        forward = fused_net.FusedForward(case_net)
+        bsz, h, w, _ = obs.shape
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            got = forward(obs)
+            torch.cuda.synchronize()
+            if compile_s is None:
+                compile_s = time.perf_counter() - t0
+            # The pack, bit for bit.
+            table, rows, length = forward._table(device)
+            packed = torch.empty(length, dtype=torch.bfloat16, device=device)
+            fused_net.pack(table, packed, rows)
+            want_packed = torch.cat([F.pad(
+                b.conv.weight.permute(0, 2, 3, 1).flatten(1),
+                (0, fused_net.padded_depth(i, t) - i * t)).flatten()
+                for b, (_, _, _, i, t) in zip(
+                    fused_net.trunk_convs(case_net), rows)]).bfloat16()
+            check(torch.equal(packed, want_packed),
+                  f"{label}: packed weights differ")
+            # Each conv layer and the heads on the kernel's own input.
+            offsets = iter(packed[o:o + c * fused_net.padded_depth(i, t)]
+                           for _, o, c, i, t in rows)
+            worst = 0.0
+            x_flat, x_nchw = obs, obs.permute(0, 3, 1, 2)
+            m = bsz * h * w
+
+            def plain_layer(inp, block):
+                return fused_net._epilogue_plain(
+                    fused_net._conv_plain(inp, block, torch.bfloat16), block)
+
+            out = torch.empty(m, case_net.cfg.filters, dtype=torch.bfloat16,
+                              device=device)
+            fused_net.conv(x_flat, next(offsets), case_net.stem, (h, w), out)
+            want = torch.relu(plain_layer(x_nchw, case_net.stem))
+            nhwc = want.permute(0, 2, 3, 1).reshape(m, -1)
+            worst = max(worst, layer_steps(out, nhwc))
+            x_flat = out
+            for block in case_net.blocks:
+                x_nchw = x_flat.view(bsz, h, w, -1).permute(0, 3, 1, 2)
+                y = torch.empty_like(x_flat)
+                fused_net.conv(x_flat, next(offsets), block.conv1, (h, w), y)
+                want_y = torch.relu(plain_layer(x_nchw, block.conv1))
+                worst = max(worst, layer_steps(
+                    y, want_y.permute(0, 2, 3, 1).reshape(m, -1)))
+                z = torch.empty_like(x_flat)
+                w1, wp = next(offsets), next(offsets)
+                fused_net.conv(y, w1, block.conv2, (h, w), z,
+                               residual=(x_flat, wp, block.proj))
+                y_nchw = y.view(bsz, h, w, -1).permute(0, 3, 1, 2)
+                want_z = torch.relu(plain_layer(y_nchw, block.conv2)
+                                    + plain_layer(x_nchw, block.proj))
+                worst = max(worst, layer_steps(
+                    z, want_z.permute(0, 2, 3, 1).reshape(m, -1)))
+                x_flat = z
+            pc = case_net.policy_conv.conv.out_channels
+            p = torch.empty(bsz, h * w * pc, device=device)
+            v = torch.empty(bsz, h * w, device=device)
+            fused_net.heads(x_flat, case_net, p, v)
+            x_nchw = x_flat.view(bsz, h, w, -1).permute(0, 3, 1, 2)
+            head_err = 0.0
+            for feats, head in ((p, case_net.policy_conv),
+                                (v, case_net.value_conv)):
+                want_h = torch.relu(plain_layer(x_nchw, head)).permute(
+                    0, 2, 3, 1).reshape(bsz, -1)
+                head_err = max(head_err, ((feats - want_h).abs().max()
+                                          / want_h.abs().max()).item())
+            plain = fused_net.forward_plain(case_net, obs)
+            module = case_net(obs)
+        out_err, module_err = gap(got, plain), gap(module, plain)
+        log(f"fused net, {label}: pack bit-equal; conv layers within "
+            f"{worst:.2f} bf16 steps of the plain layer, heads "
+            f"{head_err:.2e} relative; forward vs plain max-abs {out_err:.3e} "
+            f"(logits, value), module path vs plain {module_err:.3e}")
+        check(worst <= FUSED_LAYER_STEPS, f"{label}: a conv layer is "
+              f"{worst:.2f} bf16 steps from its plain version")
+        check(head_err <= FUSED_HEAD_RTOL, f"{label}: heads {head_err}")
+        check(out_err <= FUSED_OUTPUT_LIMIT, f"{label}: forward {out_err}")
+
+    # A promote between two replays of one captured search graph.
+    # The promoted net: every parameter and running statistic of the c4-r5
+    # net scaled by its own factor in [0.9, 1.1].
+    newer = copy.deepcopy(net)
+    with torch.no_grad():
+        for t in list(newer.parameters()) + list(newer.buffers()):
+            t.mul_(0.9 + 0.2 * torch.rand(t.shape, generator=gen,
+                                          device=device))
+    mcts_cfg = MCTSConfig(simulations=FUSED_GRAPH_SIMS, **NOISE)
+    states = random_positions(env, 256, 20, gen, device)
+
+    def module_evaluate(module_net):
+        @torch.inference_mode()
+        def evaluate(obs):
+            logits, value = module_net(obs)
+            return torch.softmax(logits, dim=-1), value
+        return evaluate
+
+    # One algorithm per convolution on the module path, so that equal
+    # batches give equal bits.
+    torch.backends.cudnn.deterministic = True
+    for label, make in (("fused", make_evaluate_fn),
+                        ("module", module_evaluate)):
+        best = copy.deepcopy(net)
+        search = FusedConnectNSearchV2(env, mcts_cfg)
+        evaluate = make(best)
+
+        def run(s, e):
+            noise = torch.Generator(device=device).manual_seed(5)
+            return s.search_root_stats(states, e, noise, FUSED_GRAPH_SIMS)
+
+        captures = FusedConnectNSearchV2.captures
+        with FusedNetCount() as count:
+            before = run(search, evaluate)
+            best.load_state_dict(newer.state_dict())
+            after = run(search, evaluate)
+        if label == "fused":
+            # One capture: its warm-up waves and its recorded wave; the
+            # two searches' 2 x FUSED_GRAPH_SIMS waves are replays.
+            search_counts = count.check("captured search", len(net.blocks))
+            check((count.recorded, count.eager)
+                  == (1, fused_mcts_v2.WARMUP_WAVES),
+                  f"captured search: fused forwards {search_counts}")
+        check(FusedConnectNSearchV2.captures == captures + 1,
+              f"{label}: the promote made a new capture")
+        fresh = run(FusedConnectNSearchV2(env, mcts_cfg), make(newer))
+        check(same_bits(after[0], fresh[0]) and same_bits(after[1], fresh[1]),
+              f"{label}: the replayed graph after promote differs from a "
+              f"fresh capture of the promoted net")
+        check(not same_bits(before[1], after[1]),
+              f"{label}: the promote did not reach the replayed graph")
+        log(f"fused net: {label} path, one captured search graph (256 games, "
+            f"{FUSED_GRAPH_SIMS} sims): a promote (step {meta['steps']}'s "
+            f"weights and statistics each scaled by 0.9-1.1) between replays "
+            f"gives a fresh capture's root visits and values bit for bit; "
+            f"root visits changed at {int((before[0] != after[0]).sum())} "
+            f"edges")
+
+    # Times at the self-play shape (TF32 back on for the module path).
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.allow_tf32 = True
+    obs = cases[0][2]
+    forward = fused_net.FusedForward(net)
+    with torch.inference_mode():
+        fused_ms, fused_host_ms = time_forward(forward, obs, 20)
+        module_ms, module_host_ms = time_forward(net, obs, 5)
+        torch.backends.cudnn.allow_tf32 = False
+        plain_ms, _ = time_forward(
+            lambda o: fused_net.forward_plain(net, o), obs, 5)
+        torch.backends.cudnn.allow_tf32 = True
+        _, ms_by_name, count_by_name, _ = profiled(
+            lambda: [forward(obs) for _ in range(10)], host=False)
+    flops, bytes_ = fused_flops_and_bytes(net, 1024, (6, 7))
+    bound_ms = max(flops / 989e12, bytes_ / HBM_BYTES_PER_S) * 1e3
+    # Mean ms of each kernel and the events the profiler kept (it may keep
+    # fewer after the earlier phases' traces); the convs of one forward
+    # (the stem's, the plain and the residual kernel's instantiations).
+    kernels = {name: (ms / count_by_name[name], count_by_name[name])
+               for name, ms in ms_by_name.items()}
+    convs = [name for name in kernels if "conv_kernel" in name]
+    heads_name = [name for name in kernels if "heads_kernel" in name]
+    check(len(convs) == 3 and len(heads_name) == 1,
+          f"fused net: kernels {sorted(kernels)}")
+    conv_ms = (sum(ms_by_name[name] for name in convs)
+               / count_by_name[heads_name[0]])
+    log(f"fused net at B=1024 (c4-r5): build and first call {compile_s:.1f} s;"
+        f" device {fused_ms:.4f} ms a forward (host enqueue "
+        f"{fused_host_ms:.4f} ms), bound {bound_ms:.4f} ms ({flops / 1e9:.1f}"
+        f" GFLOP, {bytes_ / 1e6:.1f} MB), {flops / fused_ms / 1e9:.1f} "
+        f"TFLOP/s; plain version {plain_ms:.4f} ms; module path (cuDNN) "
+        f"{module_ms:.4f} ms (host {module_host_ms:.4f} ms)")
+    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0]):
+        log(f"  {name[:70]}: {ms:.4f} ms ({n} events in 10 forwards)")
+    return {
+        "name": "fused_net_forward",
+        "route": "cuda",
+        "source": "custom_alphazero_tpu_torch/csrc/fused_net.cu",
+        "replaces": None,
+        "launches_captured_search": search_counts,
+        "max_abs_err": out_err,
+        "ms": fused_ms,
+        "conv_kernels_ms": conv_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "flops" if flops / 989e12 > bytes_ / HBM_BYTES_PER_S
+        else "bytes",
+        "library_ms": module_ms,
+    }
+
+
 def launch_shapes(device) -> None:
     """K1 at the phase-3 shapes, rebuilt with 1, 2, 4 and 8 games (warps)
     per block: bit-equal to the plain version, and its times."""
@@ -3158,6 +3525,9 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:] == ["--launch-shapes"]:
         launch_shapes(torch.device("cuda"))
+        return 0
+    if sys.argv[1:] == ["--fused-net"]:
+        print(json.dumps({"kernels": [fused_net_phase(torch.device("cuda"))]}))
         return 0
     from custom_alphazero_tpu_torch.config import (
         ConnectNConfig,
@@ -3328,10 +3698,11 @@ def main() -> int:
     del ring
 
     # ---- 11. arena ----------------------------------------------------------
-    arena_launches = arena_phase(env, mcts_cfg, net_bf16, gen, device)
+    arena_launches, arena_fused = arena_phase(env, mcts_cfg, net_bf16, gen,
+                                              device)
 
     # ---- 12. the entry point ------------------------------------------------
-    learner_launches, run_copy = learner_phase(device)
+    (learner_launches, learner_fused), run_copy = learner_phase(device)
 
     # ---- 13. the supervisor with run_c4_r5.sh's flags -----------------------
     step_11660 = supervisor_phase(run_copy)
@@ -3372,7 +3743,12 @@ def main() -> int:
     # ---- 25. multi-GPU ------------------------------------------------------
     multi_gpu_launches = multi_gpu_phase(card_step, obs, device)
 
-    # ---- 26. result lines ---------------------------------------------------
+    # ---- 26. the fused net --------------------------------------------------
+    fused_kernel = fused_net_phase(device)
+    fused_kernel["launches_arena"] = arena_fused
+    fused_kernel["launches_learner"] = learner_fused
+
+    # ---- 27. result lines ---------------------------------------------------
     k2_err, k2_ms, k2_plain_ms, k2_bound_ms, k2_carry_bound_ms, k2_fit = k2
     check(k2_launches > 0 and k2_err == 0.0, "K2 did not run or disagreed")
     kernels = [{
@@ -3410,7 +3786,7 @@ def main() -> int:
         "carry_bound_ms": k2_carry_bound_ms,
         "chain_intercept_ms": k2_fit[0],
         "chain_ms_per_level": k2_fit[1],
-    }]
+    }, fused_kernel]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,0 +1,343 @@
+"""The policy-value net's inference forward as hand-written kernels.
+
+``FusedForward(net)(obs)`` computes ``net(obs)`` for an eval-mode bf16
+``PolicyValueNet`` (models/policy_value.py) with one kernel per
+convolution of the trunk and one for both head convolutions, each with the
+layer's conv bias, eval-mode BatchNorm, residual projection and ReLU in its
+epilogue (csrc/fused_net.cu, built with nvcc by ``ops/_build.py`` on first
+use and bound through ctypes):
+
+- ``pack``: one launch a forward rounds every trunk conv weight, from the
+  live float32 parameters, to bf16 (as autocast rounds them) into one
+  buffer of C_out rows of (tap, C_in), the GEMM's K-major N x K operand;
+- ``conv``: an implicit GEMM on NHWC activations. One GEMM row is one board
+  cell: M = B x H x W, N = filters, K = taps x C_in. Each K step gathers one
+  tap's channels of the shifted cells with masked loads at the board's
+  edges (no im2col tensor) and a masked channel tail. The stem reads the
+  float32 observations and rounds them to bf16 on load. The epilogue, in
+  float32 from the live parameters and running statistics, applies the
+  conv bias and the BatchNorm as one scale and offset a channel and, in a
+  residual block's second conv, adds the block's 1x1 projection (a second
+  accumulator over the block input, its own BatchNorm), then ReLU, and
+  writes bf16: one rounding a layer, where the module path rounds after the
+  conv, the BatchNorm and the add;
+- ``heads``: the policy conv (2 filters) and the value conv (1 filter) over
+  the trunk's output with their BatchNorm and ReLU, written in float32.
+
+The dense layers, ``tanh`` and the softmax stay plain matrix products in
+float32: the policy logits and the value as the module path computes them,
+except that the value's hidden layer reads the heads' float32 output in
+float32 where autocast runs it in bf16 (one rounding fewer, no per-forward
+weight cast).
+
+Nothing is cached on the host between forwards: every launch reads the
+parameters and running statistics where they live, so an in-place
+``load_state_dict`` (``Learner.promote``) or a train step reaches the next
+forward, also one replayed from a captured CUDA graph. What the object keeps
+is the table of the conv weights' addresses that ``pack`` reads; it is
+rebuilt when an address changes.
+
+These kernels replace no TPU kernel: the JAX package leaves the net to XLA,
+which fuses each layer's BatchNorm, bias, add and ReLU into the convolution
+on the TPU. On the card the module path ran each of those as a separate
+pass over the 11 MB activation: about 160 kernels a self-play wave, 57% of
+the device's busy time in element-wise passes. What bounds them on an H100,
+and what the design does about it, is in the source's head comment.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from custom_alphazero_tpu_torch.models.policy_value import (
+    ConvBlock,
+    PolicyValueNet,
+)
+from custom_alphazero_tpu_torch.ops import _build
+
+# The conv kernel's K stage (csrc/fused_net.cu's kBK): each packed weight
+# row is padded with zeros to a multiple of it.
+K_STEP = 64
+# The pack kernel's tile of (C_out, K) elements.
+PACK_TILE = 32
+
+
+def applies(net: PolicyValueNet, obs: torch.Tensor) -> bool:
+    """Whether ``make_evaluate_fn`` takes the fused forward: CUDA
+    observations and a bf16 net in eval mode (its ``evaluate`` runs under
+    ``torch.inference_mode``, so grad is off) whose filters are a multiple
+    of 8 (the kernels move activations 16 bytes at a time). Anything else
+    (the training forward, float32 nets, CPU tensors) runs ``net(obs)``."""
+    return (obs.device.type == "cuda"
+            and net.cfg.compute_dtype == "bfloat16" and not net.training
+            and net.cfg.filters % 8 == 0)
+
+
+def trunk_convs(net: PolicyValueNet):
+    """The trunk's ConvBlocks in the order ``pack`` lays them out: the stem,
+    then conv1, conv2 and proj of each residual block."""
+    convs = [net.stem]
+    for block in net.blocks:
+        convs += [block.conv1, block.conv2, block.proj]
+    return convs
+
+
+def padded_depth(cin: int, taps: int) -> int:
+    """The length of a packed weight row: taps x C_in, rounded up to a
+    multiple of K_STEP."""
+    return -(-cin * taps // K_STEP) * K_STEP
+
+
+def pack_layout(net: PolicyValueNet):
+    """Rows (weight address, offset, C_out, C_in, taps) of the pack table
+    and the packed buffer's length in elements. A layer's packed weight is
+    C_out rows of ``padded_depth`` bf16, (tap, C_in) order, then zeros."""
+    rows, offset = [], 0
+    for block in trunk_convs(net):
+        w = block.conv.weight
+        if w.dtype != torch.float32 or not w.is_contiguous():
+            raise ValueError("the fused forward reads contiguous float32 "
+                             f"conv weights; got {w.dtype}")
+        cout, cin, kh, kw = w.shape
+        rows.append((w.data_ptr(), offset, cout, cin, kh * kw))
+        offset += cout * padded_depth(cin, kh * kw)
+    return rows, offset
+
+
+# ---------------------------------------------------------------------------
+# The plain version
+# ---------------------------------------------------------------------------
+
+
+def _epilogue_plain(z: torch.Tensor, block: ConvBlock) -> torch.Tensor:
+    """Conv bias and eval-mode BatchNorm on float32 NCHW conv sums, as the
+    kernel folds them: z * scale + offset, scale = gamma / sqrt(var + eps),
+    offset = (bias - mean) * scale + beta."""
+    bn = block.bn
+    scale = bn.weight / torch.sqrt(bn.running_var + bn.eps)
+    offset = (block.conv.bias - bn.running_mean) * scale + bn.bias
+    return z * scale[:, None, None] + offset[:, None, None]
+
+
+def _conv_plain(x: torch.Tensor, block: ConvBlock,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Float32 sums of the conv of ``x`` (NCHW) over operands rounded to
+    ``dtype``: bf16 products are exact in float32, as in the tensor cores."""
+    w = block.conv.weight
+    return F.conv2d(x.to(dtype).float(), w.to(dtype).float(), None,
+                    padding=w.shape[-1] // 2)
+
+
+def _dense_heads(net: PolicyValueNet, p: torch.Tensor, v: torch.Tensor):
+    """(B, H*W*P) and (B, H*W*V) float32 head features, NHWC order ->
+    (logits (B, A), value (B,)), all float32. The logits are computed
+    transposed, (W p^T)^T: for p W^T, with its few columns, cuBLAS takes a
+    split-K kernel, a memset and a scaling pass (4 launches, 17 us on an
+    H100 at B=1,024, against 2 launches and 4 us)."""
+    logits = torch.addmm(net.policy_dense.bias[:, None],
+                         net.policy_dense.weight, p.t()).t()
+    v = torch.relu(F.linear(v, net.value_dense1.weight,
+                            net.value_dense1.bias))
+    value = torch.tanh(F.linear(v, net.value_dense2.weight,
+                                net.value_dense2.bias))[:, 0]
+    return logits, value
+
+
+def forward_plain(net: PolicyValueNet, obs: torch.Tensor):
+    """The fused forward in plain PyTorch, with the kernels' arithmetic:
+    operands rounded to the net's compute dtype, float32 sums and
+    epilogues, one rounding of each trunk layer's output. A float32 net
+    rounds nothing, so its result is the module's up to float32 order."""
+    forward_plain.calls += 1
+    dtype = (torch.bfloat16 if net.cfg.compute_dtype == "bfloat16"
+             else torch.float32)
+    x = obs.permute(0, 3, 1, 2)
+    x = torch.relu(_epilogue_plain(_conv_plain(x, net.stem, dtype),
+                                   net.stem)).to(dtype)
+    for block in net.blocks:
+        y = torch.relu(_epilogue_plain(_conv_plain(x, block.conv1, dtype),
+                                       block.conv1)).to(dtype)
+        z = (_epilogue_plain(_conv_plain(y, block.conv2, dtype), block.conv2)
+             + _epilogue_plain(_conv_plain(x, block.proj, dtype), block.proj))
+        x = torch.relu(z).to(dtype)
+    p, v = (torch.relu(_epilogue_plain(_conv_plain(x, head, dtype), head))
+            .permute(0, 2, 3, 1).flatten(1)
+            for head in (net.policy_conv, net.value_conv))
+    return _dense_heads(net, p, v)
+
+
+forward_plain.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# The kernels (csrc/fused_net.cu)
+# ---------------------------------------------------------------------------
+
+_LIB = None
+
+
+def _lib():
+    """csrc/fused_net.cu's entry points, built and loaded on first use."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("fused_net")
+        ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.fused_net_pack.argtypes = [ptr, i, i, ptr, ptr]
+        lib.fused_net_conv.argtypes = ([ptr, i, ptr, i, i] + [ptr] * 12
+                                       + [i, ptr, i, i, i, i, f, ptr])
+        lib.fused_net_heads.argtypes = ([ptr, i, i] + [ptr] * 6 + [i]
+                                        + [ptr] * 6 + [i, f, ptr, ptr, ptr])
+        for fn in (lib.fused_net_pack, lib.fused_net_conv,
+                   lib.fused_net_heads):
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launched(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"fused net {name} launch failed: cudaError {rc}")
+
+
+def _bn_args(block: ConvBlock):
+    bn = block.bn
+    return tuple(t.data_ptr() for t in (block.conv.bias, bn.weight, bn.bias,
+                                        bn.running_mean, bn.running_var))
+
+
+def pack(table: torch.Tensor, out: torch.Tensor, rows) -> None:
+    """Launch ``pack`` over the layers of the table (one launch), whose
+    rows on the host are ``rows``: a block a (PACK_TILE x PACK_TILE) tile of
+    a layer's output channels and padded K."""
+    tiles = max(-(-cout // PACK_TILE) * (padded_depth(cin, taps) // PACK_TILE)
+                for _, _, cout, cin, taps in rows)
+    _launched("pack", _lib().fused_net_pack(
+        table.data_ptr(), table.shape[0], tiles, out.data_ptr(),
+        _stream(out.device)))
+    pack.launches += 1
+
+
+def conv(x: torch.Tensor, w: torch.Tensor, block: ConvBlock, hw, out,
+         residual: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                  ConvBlock]] = None) -> None:
+    """Launch one conv layer on NHWC ``x``, (B, H, W, C_in) or its
+    (M, C_in) rows (float32, the stem, or bf16), into (M, N) bf16 ``out``; ``w`` is the layer's packed
+    weight (``pack_layout``). ``residual``: (block input, its packed 1x1
+    weight, the proj ConvBlock), added before the ReLU."""
+    h, w_ = hw
+    cin = x.shape[-1]
+    n = block.conv.out_channels
+    m = out.shape[0]
+    if residual is None:
+        r, wr, rbn, res = x, w, _bn_args(block), 0
+    else:
+        r, wr, rblock = residual
+        rbn, res = _bn_args(rblock), 1
+    _launched("conv", _lib().fused_net_conv(
+        x.data_ptr(), int(x.dtype == torch.float32), w.data_ptr(), cin,
+        block.conv.kernel_size[0], *_bn_args(block), r.data_ptr(),
+        wr.data_ptr(), *rbn, res, out.data_ptr(), m, h, w_, n,
+        block.bn.eps, _stream(out.device)))
+    conv.launches += 1
+
+
+def heads(x: torch.Tensor, net: PolicyValueNet, p_out, v_out) -> None:
+    """Launch the policy and value head convs on the (M, C) bf16 trunk
+    output into (M, P) and (M, V) float32."""
+    m, c = x.shape
+    pc, vc = net.policy_conv, net.value_conv
+    _launched("heads", _lib().fused_net_heads(
+        x.data_ptr(), m, c, pc.conv.weight.data_ptr(), *_bn_args(pc),
+        pc.conv.out_channels, vc.conv.weight.data_ptr(), *_bn_args(vc),
+        vc.conv.out_channels, pc.bn.eps, p_out.data_ptr(), v_out.data_ptr(),
+        _stream(x.device)))
+    heads.launches += 1
+
+
+# Launches made from the host. A launch recorded into a CUDA graph counts
+# once, when recorded; its replays are not counted.
+pack.launches = 0
+conv.launches = 0
+heads.launches = 0
+
+
+class FusedForward:
+    """``net``'s eval-mode forward: the kernels for CUDA observations, the
+    plain version for CPU ones (any other device raises). Observations are
+    (B, H, W, C_in) float32 NHWC; returns (logits (B, A), value (B,)),
+    float32."""
+
+    def __init__(self, net: PolicyValueNet):
+        self.net = net
+        self._layout = None  # (weight addresses, pack table)
+
+    def __call__(self, obs: torch.Tensor):
+        if obs.device.type == "cpu":
+            return forward_plain(self.net, obs)
+        if obs.device.type != "cuda":
+            raise ValueError(f"no fused forward for device {obs.device}")
+        return self._forward_cuda(obs)
+
+    def _table(self, device):
+        """The pack table on ``device`` and its rows, rebuilt when a weight's
+        address changed (never inside a graph capture: a host copy cannot be
+        captured)."""
+        rows, length = pack_layout(self.net)
+        addresses = tuple(row[0] for row in rows)
+        if self._layout is None or self._layout[0] != addresses:
+            if (device.type == "cuda"
+                    and torch.cuda.is_current_stream_capturing()):
+                raise RuntimeError("the fused forward's first call for a net "
+                                   "must run outside a CUDA graph capture")
+            table = torch.tensor(rows, dtype=torch.int64, device=device)
+            self._layout = (addresses, table)
+        return self._layout[1], rows, length
+
+    def _forward_cuda(self, obs: torch.Tensor):
+        net = self.net
+        stem = net.stem.conv
+        if obs.dtype != torch.float32 or obs.dim() != 4:
+            raise ValueError(f"observations must be (B, H, W, C) float32; got "
+                             f"{tuple(obs.shape)} {obs.dtype}")
+        bsz, h, w, cin = obs.shape
+        p_out = net.policy_conv.conv.out_channels
+        v_out = net.value_conv.conv.out_channels
+        if (cin != stem.in_channels
+                or net.policy_dense.in_features != h * w * p_out):
+            raise ValueError(f"observations {tuple(obs.shape)} do not fit the "
+                             f"net (C_in {stem.in_channels}, policy features "
+                             f"{net.policy_dense.in_features})")
+        if stem.weight.device != obs.device:
+            raise ValueError(f"net on {stem.weight.device}, observations on "
+                             f"{obs.device}")
+        obs = obs.contiguous()
+        table, rows, length = self._table(obs.device)
+        packed = torch.empty(length, dtype=torch.bfloat16, device=obs.device)
+        pack(table, packed, rows)
+        weights = iter(packed[offset:offset + cout * padded_depth(cin, taps)]
+                       for _, offset, cout, cin, taps in rows)
+
+        m = bsz * h * w
+        filters = net.cfg.filters
+        x = torch.empty(m, filters, dtype=torch.bfloat16, device=obs.device)
+        conv(obs, next(weights), net.stem, (h, w), x)
+        for block in net.blocks:
+            y = torch.empty_like(x)
+            conv(x, next(weights), block.conv1, (h, w), y)
+            out = torch.empty_like(x)
+            w1, wp = next(weights), next(weights)
+            conv(y, w1, block.conv2, (h, w), out,
+                 residual=(x, wp, block.proj))
+            x = out
+        p = torch.empty(bsz, h * w * p_out, device=obs.device)
+        v = torch.empty(bsz, h * w * v_out, device=obs.device)
+        heads(x, net, p, v)
+        return _dense_heads(net, p, v)

@@ -1,0 +1,411 @@
+"""The fused inference forward of the policy-value net (ops/fused_net.py)
+on the CPU: its plain version against the Flax net and the module path at
+Connect-4 and chess shapes, which evaluations take it, and the wrapper's
+CUDA launches driven through stand-ins of csrc/fused_net.cu's entry points
+written in PyTorch, which read and write the memory at the pointers the
+wrapper passes: their result against the Flax net, and the live weights
+reaching every forward."""
+
+import copy
+import ctypes
+import dataclasses
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from custom_alphazero_tpu.config import ModelConfig as JaxModelConfig
+from custom_alphazero_tpu.models.policy_value import (
+    PolicyValueNet as JaxPolicyValueNet,
+)
+from custom_alphazero_tpu_torch.config import ModelConfig
+from custom_alphazero_tpu_torch.models.convert import from_jax_variables
+from custom_alphazero_tpu_torch.models.policy_value import PolicyValueNet
+from custom_alphazero_tpu_torch.ops import fused_net
+from custom_alphazero_tpu_torch.runtime.evaluate import make_evaluate_fn
+from custom_alphazero_tpu_torch.runtime.train import (
+    init_train_state,
+    make_train_step,
+)
+
+# (actions, board (H, W), input channels): Connect-4 and chess.
+SHAPES = {"c4": (7, (6, 7), 4), "chess": (1968, (8, 8), 118)}
+SMALL = dict(depth=2, filters=16, value_hidden=32)
+
+
+def _net(shape: str, dtype: str = "bfloat16", seed: int = 0):
+    """An eval-mode net whose every parameter and running statistic is
+    drawn, so each term of the epilogues matters."""
+    actions, hw, channels = SHAPES[shape]
+    net = PolicyValueNet(actions, ModelConfig(**SMALL, compute_dtype=dtype),
+                         channels, hw)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in list(net.named_parameters()) + list(
+                net.named_buffers()):
+            if name.endswith("running_var"):
+                t.copy_(torch.rand(t.shape, generator=gen) * 1.5 + 0.25)
+            elif name.endswith("bn.weight"):
+                t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
+            elif t.dim() > 1:
+                t.copy_(torch.randn(t.shape, generator=gen)
+                        / t[0].numel() ** 0.5)
+            else:
+                t.copy_(torch.randn(t.shape, generator=gen) * 0.2)
+    return net.eval()
+
+
+def _obs(shape: str, batch: int, seed: int = 1):
+    _, (h, w), channels = SHAPES[shape]
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.rand((batch, h, w, channels), generator=gen) < 0.3).float()
+
+
+def _gap(got, want):
+    return max((g - w).abs().max().item() for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("batch", [1, 3, 1024])
+@pytest.mark.parametrize("shape", ["c4", "chess"])
+def test_plain_fused_forward_matches_module(shape, batch):
+    obs = _obs(shape, batch)
+    with torch.inference_mode():
+        # float32: the same function up to the order of float32 sums and
+        # BatchNorm's arithmetic (observed at most 5.4e-7).
+        net = _net(shape, "float32")
+        want = net(obs)
+        assert _gap(fused_net.forward_plain(net, obs), want) < 1e-5
+        # bf16: both paths round operands to bf16 (2**-9 relative); the
+        # module also rounds each conv's output, its BatchNorm's and the
+        # residual add's, the fused path each layer's output once. Each
+        # sits a few bf16 steps from float32 over 5 layers (observed at
+        # most 0.011 from float32 and 0.013 from each other, on logits up
+        # to 0.7): held at 0.05.
+        bf16 = _net(shape, "bfloat16")
+        module = bf16(obs)
+        fused = fused_net.forward_plain(bf16, obs)
+    assert all(t.dtype == torch.float32 for t in fused)
+    assert fused[0].shape == want[0].shape and fused[1].shape == want[1].shape
+    assert _gap(module, want) < 0.05
+    assert _gap(fused, want) < 0.05
+    assert _gap(fused, module) < 0.05
+
+
+def _flax_case(shape: str, batch: int, dtype: str):
+    """(Flax's logits and value in float32 and in bf16, the port's net in
+    ``dtype`` built from the same variables, the observations). The
+    variables are Flax's init after three train-mode updates of the batch
+    statistics, with every bias and BatchNorm scale and offset then drawn,
+    so each term of the epilogues matters."""
+    actions, hw, channels = SHAPES[shape]
+    obs = _obs(shape, batch).numpy()
+    jcfg = JaxModelConfig(**SMALL, compute_dtype="float32")
+    flax_net = JaxPolicyValueNet(actions, jcfg)
+    variables = flax_net.init(jax.random.PRNGKey(7), jnp.asarray(obs[:1]),
+                              train=False)
+    for _ in range(3):
+        _, mutated = flax_net.apply(variables, jnp.asarray(obs[:16]),
+                                    train=True, mutable=["batch_stats"])
+        variables = {"params": variables["params"],
+                     "batch_stats": mutated["batch_stats"]}
+    rng = np.random.default_rng(11)
+    params = jax.tree_util.tree_map(
+        lambda a: (np.asarray(a) + rng.normal(0.0, 0.2, a.shape).astype(
+            np.float32)) if a.ndim == 1 else np.asarray(a),
+        jax.device_get(variables["params"]))
+    variables = {"params": params,
+                 "batch_stats": jax.device_get(variables["batch_stats"])}
+    refs = {d: jax.device_get(JaxPolicyValueNet(
+        actions, dataclasses.replace(jcfg, compute_dtype=d)).apply(
+            variables, jnp.asarray(obs), train=False))
+        for d in ("float32", "bfloat16")}
+    net = from_jax_variables(
+        variables["params"], variables["batch_stats"], actions,
+        ModelConfig(**SMALL, compute_dtype=dtype), channels, hw,
+        device="cpu")
+    return refs, net, torch.from_numpy(obs)
+
+
+# Tolerances against Flax. float32: as the module path's parity test holds
+# it (tests/test_torch_port_net.py), the order of float32 sums only. bf16:
+# within 1e-2 of Flax's float32 forward (observed at most 0.009, on logits
+# up to 3.2), and within 2e-2 of Flax's bf16 forward. That is looser than
+# the module path's 1e-2 there, on 16 Connect-4 rows with zero biases: here,
+# with drawn biases and BatchNorm offsets and up to 1,024 rows, Flax's bf16
+# forward itself lies up to 0.016 from its float32 forward, the module
+# path up to 0.016 from Flax's bf16 and the fused forward up to 0.016.
+FLAX_TOL = {"float32": dict(rtol=2e-4, atol=2e-5),
+            "bfloat16": dict(rtol=0.0, atol=2e-2)}
+BF16_FROM_FLOAT32 = dict(rtol=0.0, atol=1e-2)
+
+
+def _assert_matches_flax(got, refs, dtype):
+    for t, want in zip(got, refs[dtype]):
+        np.testing.assert_allclose(t.numpy(), want, **FLAX_TOL[dtype])
+    if dtype == "bfloat16":
+        for t, want in zip(got, refs["float32"]):
+            np.testing.assert_allclose(t.numpy(), want, **BF16_FROM_FLOAT32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 3, 1024])
+@pytest.mark.parametrize("shape", ["c4", "chess"])
+def test_plain_fused_forward_matches_flax(shape, batch, dtype):
+    refs, net, obs = _flax_case(shape, batch, dtype)
+    with torch.inference_mode():
+        got = fused_net.forward_plain(net, obs)
+        module = net(obs)
+    _assert_matches_flax(got, refs, dtype)
+    # The module path, held to the same bounds on the same inputs.
+    for t, want in zip(module, refs[dtype]):
+        np.testing.assert_allclose(t.numpy(), want, **FLAX_TOL[dtype])
+
+
+def _evaluations(net, obs):
+    """(evaluate's probabilities and value, plain-version calls in it)."""
+    calls = fused_net.forward_plain.calls
+    out = make_evaluate_fn(net)(obs)
+    return out, fused_net.forward_plain.calls - calls
+
+
+class _CudaObservations:
+    """What ``applies`` reads of a CUDA tensor: its device."""
+    device = torch.device("cuda")
+
+
+@pytest.mark.parametrize("case", ["eval bf16", "training", "float32",
+                                  "cpu", "filters"])
+def test_applies_to_eval_bf16_nets_on_cuda_only(case):
+    net = _net("c4", "float32" if case == "float32" else "bfloat16")
+    obs = _obs("c4", 2) if case == "cpu" else _CudaObservations()
+    if case == "training":
+        net.train()
+    if case == "filters":  # 12 filters: not a multiple of the 16-byte loads
+        net = PolicyValueNet(7, ModelConfig(depth=1, filters=12,
+                                            value_hidden=8), 4, (6, 7))
+        net.eval()
+    assert fused_net.applies(net, obs) == (case == "eval bf16")
+
+
+def test_cpu_tensors_take_the_module_path():
+    net, obs = _net("c4"), _obs("c4", 8)
+    (probs, value), calls = _evaluations(net, obs)
+    with torch.inference_mode():
+        logits, want_value = net(obs)
+    assert calls == 0
+    assert torch.equal(probs, torch.softmax(logits, dim=-1))
+    assert torch.equal(value, want_value)
+
+
+@pytest.mark.parametrize("case", ["training", "float32"])
+def test_training_and_float32_nets_take_the_module_path(case):
+    obs = _obs("c4", 8)
+    net = _net("c4", "float32" if case == "float32" else "bfloat16")
+    if case == "training":
+        net.train()
+    twin = copy.deepcopy(net)  # a training forward moves the statistics
+    (probs, value), calls = _evaluations(net, obs)
+    with torch.inference_mode():
+        logits, want_value = twin(obs)
+    assert calls == 0
+    assert torch.equal(probs, torch.softmax(logits, dim=-1))
+    assert torch.equal(value, want_value)
+
+
+def test_evaluate_takes_the_fused_forward_where_it_applies(monkeypatch):
+    """Where ``applies`` holds, ``evaluate`` is the softmax of the fused
+    forward (here its CPU route, the plain version)."""
+    monkeypatch.setattr(fused_net, "applies", lambda net, obs: True)
+    net, obs = _net("c4"), _obs("c4", 8)
+    (probs, value), calls = _evaluations(net, obs)
+    logits, want_value = fused_net.forward_plain(net, obs)
+    assert calls == 1
+    assert torch.equal(probs, torch.softmax(logits, dim=-1))
+    assert torch.equal(value, want_value)
+
+
+# ---------------------------------------------------------------------------
+# The wrapper's CUDA launches, through PyTorch stand-ins of the entry points
+# ---------------------------------------------------------------------------
+
+
+def _at(address: int, shape, dtype) -> torch.Tensor:
+    """The CPU tensor of ``shape`` at ``address`` (sharing its memory)."""
+    size = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    buffer = (ctypes.c_char * size).from_address(address)
+    return torch.frombuffer(buffer, dtype=dtype).view(shape)
+
+
+def _epilogue(z, bn, n, eps):
+    bias, gamma, beta, mean, var = (_at(a, (n,), torch.float32) for a in bn)
+    scale = gamma / torch.sqrt(var + eps)
+    return z * scale + ((bias - mean) * scale + beta)
+
+
+class _StandIns:
+    """csrc/fused_net.cu's three entry points in PyTorch, with the same
+    arguments: pointers as integers, read and written in place. Each call
+    is recorded with its shape arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def fused_net_pack(self, table, layers, tiles, out, stream):
+        self.calls.append(("pack", layers, tiles))
+        for address, offset, cout, cin, taps in _at(
+                table, (layers, 5), torch.int64).tolist():
+            w = _at(address, (cout, cin, taps), torch.float32)
+            rows = _at(out + 2 * offset,
+                       (cout, fused_net.padded_depth(cin, taps)),
+                       torch.bfloat16)
+            rows.zero_()
+            rows[:, :cin * taps] = w.permute(0, 2, 1).reshape(cout, -1)
+        return 0
+
+    def fused_net_conv(self, x, x_float, w, C, ks, *args):
+        bn, (r, wr), rbn = args[:5], args[5:7], args[7:12]
+        residual, out, M, H, W, N, eps, stream = args[12:]
+        self.calls.append(("conv", x_float, C, ks, residual))
+
+        def sums(inp, width, packed, k):
+            nchw = inp.view(-1, H, W, width).permute(0, 3, 1, 2)
+            rows = _at(packed, (N, fused_net.padded_depth(width, k * k)),
+                       torch.bfloat16)
+            kernel = rows[:, :k * k * width].reshape(N, k, k, width)
+            z = F.conv2d(nchw.to(torch.bfloat16).float(),
+                         kernel.permute(0, 3, 1, 2).float(), padding=k // 2)
+            return z.permute(0, 2, 3, 1).reshape(M, N)
+
+        xt = _at(x, (M, C), torch.float32 if x_float else torch.bfloat16)
+        y = _epilogue(sums(xt, C, w, ks), bn, N, eps)
+        if residual:
+            rt = _at(r, (M, N), torch.bfloat16)
+            y = y + _epilogue(sums(rt, N, wr, 1), rbn, N, eps)
+        _at(out, (M, N), torch.bfloat16).copy_(torch.relu(y))
+        return 0
+
+    def fused_net_heads(self, x, M, C, wp, *args):
+        pbn, P, wv, vbn, V = args[:5], args[5], args[6], args[7:12], args[12]
+        eps, p, v, stream = args[13:]
+        self.calls.append(("heads", C, P, V))
+        xt = _at(x, (M, C), torch.bfloat16).float()
+        for w, bn, n, dst in ((wp, pbn, P, p), (wv, vbn, V, v)):
+            wk = _at(w, (n, C), torch.float32).to(torch.bfloat16).float()
+            _at(dst, (M, n), torch.float32).copy_(
+                torch.relu(_epilogue(xt @ wk.T, bn, n, eps)))
+        return 0
+
+
+@pytest.fixture
+def stand_ins(monkeypatch):
+    lib = _StandIns()
+    monkeypatch.setattr(fused_net, "_LIB", lib)
+    monkeypatch.setattr(fused_net, "_stream", lambda device: None)
+    return lib
+
+
+@pytest.mark.parametrize("batch", [3, 64])
+@pytest.mark.parametrize("shape", ["c4", "chess"])
+def test_launch_sequence_and_counters(stand_ins, shape, batch):
+    """The wrapper's launches for CUDA tensors, run on the CPU through the
+    stand-ins: the result is the Flax net's within the bf16 bounds above
+    and the plain version's, and each counter counts its launches."""
+    refs, net, obs = _flax_case(shape, batch, "bfloat16")
+    counts = (fused_net.pack.launches, fused_net.conv.launches,
+              fused_net.heads.launches)
+    forward = fused_net.FusedForward(net)
+    with torch.inference_mode():
+        got = forward._forward_cuda(obs)
+        got_again = forward._forward_cuda(obs)
+        want = fused_net.forward_plain(net, obs)
+    depth = len(net.blocks)
+    assert (fused_net.pack.launches - counts[0],
+            fused_net.conv.launches - counts[1],
+            fused_net.heads.launches - counts[2]) == (
+                2, 2 * (1 + 2 * depth), 2)
+    rows = fused_net.pack_layout(net)[0]
+    channels = SHAPES[shape][2]
+    filters = SMALL["filters"]
+    tile = fused_net.PACK_TILE
+    tiles = max(-(-cout // tile) * (fused_net.padded_depth(cin, taps) // tile)
+                for _, _, cout, cin, taps in rows)
+    one = ([("pack", len(rows), tiles),
+            ("conv", 1, channels, 3, 0)]
+           + [("conv", 0, filters, 3, res)
+              for _ in range(depth) for res in (0, 1)]
+           + [("heads", filters, 2, 1)])
+    assert stand_ins.calls == one + one
+    _assert_matches_flax(got, refs, "bfloat16")
+    # The plain version's arithmetic: float32 sums of one conv in another
+    # order may move a layer's bf16 rounding by one step (2**-8 relative).
+    assert _gap(got, want) < 1e-2
+    assert _gap(got_again, got) == 0.0
+
+
+def test_inplace_load_and_train_step_reach_the_next_fused_forward(
+        stand_ins):
+    """``promote``'s in-place ``load_state_dict`` and a train step change
+    the next forward of the wrapper's CUDA route, which equals the plain
+    version of the changed net; both keep every conv weight's address
+    (what a captured graph and the pack table read); replacing a weight
+    moves it."""
+    obs = _obs("c4", 16)
+    cfg = ModelConfig(**SMALL)
+    gen = torch.Generator().manual_seed(3)
+    state = init_train_state(7, cfg, gen, (6, 7, 4), device="cpu")
+    net = state.net
+    forward = fused_net.FusedForward(net)
+    addresses = [row[0] for row in fused_net.pack_layout(net)[0]]
+
+    def fused():
+        with torch.inference_mode():
+            return forward._forward_cuda(obs)
+
+    def plain():
+        with torch.inference_mode():
+            return fused_net.forward_plain(net, obs)
+
+    before = fused()
+    other = _net("c4", seed=5)
+    net.load_state_dict(other.state_dict())
+    promoted = fused()
+    assert _gap(promoted, before) > 1e-3
+    assert _gap(promoted, plain()) < 1e-2
+
+    step = make_train_step(cfg)
+    target_pi = torch.softmax(torch.randn(16, 7, generator=gen), dim=-1)
+    target_z = torch.randint(-1, 2, (16,), generator=gen).float()
+    state, _ = step(state, obs, target_pi, target_z)
+    assert not net.training
+    trained = fused()
+    assert _gap(trained, promoted) > 1e-6
+    assert _gap(trained, plain()) < 1e-2
+    assert [row[0] for row in fused_net.pack_layout(net)[0]] == addresses
+
+    net.stem.conv.weight = torch.nn.Parameter(net.stem.conv.weight.clone())
+    assert fused_net.pack_layout(net)[0][0][0] != addresses[0]
+
+
+def test_wrapper_refuses_what_the_kernels_do_not_take():
+    net = _net("c4")
+    forward = fused_net.FusedForward(net)
+    with pytest.raises(ValueError):
+        forward._forward_cuda(_obs("chess", 2))
+    with pytest.raises(ValueError):
+        forward._forward_cuda(_obs("c4", 2).double())
+    with pytest.raises(ValueError):
+        forward(_obs("c4", 2).to("meta"))
+
+
+def test_cpu_call_runs_the_plain_version():
+    net, obs = _net("chess"), _obs("chess", 3)
+    calls = fused_net.forward_plain.calls
+    with torch.inference_mode():
+        got = fused_net.FusedForward(net)(obs)
+        want = fused_net.forward_plain(net, obs)
+    assert fused_net.forward_plain.calls - calls == 2
+    assert _gap(got, want) == 0.0
