@@ -4,7 +4,9 @@ Own copies of the JAX package's config dataclasses, with the same fields and
 defaults, the same dotted-key overrides and the same JSON snapshot, so a
 configuration file (e.g. ``artifacts/c4-r5/config.json``) reads into either
 package and writes back identically. Field comments live with the JAX
-originals (custom_alphazero_tpu/config.py).
+originals (custom_alphazero_tpu/config.py). One field is the port's own:
+``model.residual_projection`` (default True, the JAX net's block), which the
+port's snapshot adds and the JAX package's ``from_json`` passes over.
 """
 
 from __future__ import annotations
@@ -75,6 +77,10 @@ class ModelConfig:
     grad_clip_norm: float = 0.0
     # bfloat16 activations (production on the card); "float32" for parity.
     compute_dtype: str = "bfloat16"
+    # Port-only: each residual block adds a 1x1 conv->BN projection of its
+    # input (the JAX net's block); False adds the input itself, AlphaGo
+    # Zero's and AlphaZero's block.
+    residual_projection: bool = True
 
 
 @dataclass(frozen=True)

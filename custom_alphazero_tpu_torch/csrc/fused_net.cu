@@ -15,13 +15,14 @@
 //   with masked (zero-filling) cp.async loads at the board's edges and at a
 //   channel tail. The stem reads the float32 observations over the flat
 //   K = taps x C_in and rounds them to bf16 on load. wgmma (m64n128k16, both
-//   operands from 128-byte-swizzled shared memory) with float32 sums; a
-//   residual block's second conv runs a second K loop into a second
-//   accumulator for the block's 1x1 projection of its input. The epilogue,
-//   in float32 from the live parameters and running statistics, applies
-//   each conv's bias and eval-mode BatchNorm as one scale and offset a
-//   channel, adds the projection, applies ReLU and writes bf16: one
-//   rounding a layer.
+//   operands from 128-byte-swizzled shared memory) with float32 sums. A
+//   residual block's second conv takes the block's skip path: with a 1x1
+//   projection of the block input it runs a second K loop into a second
+//   accumulator; with an identity skip it adds the block input's bf16 tile,
+//   read in the epilogue (no second K loop). The epilogue, in float32 from
+//   the live parameters and running statistics, applies each conv's bias
+//   and eval-mode BatchNorm as one scale and offset a channel, adds the
+//   skip, applies ReLU and writes bf16: one rounding a layer.
 // - heads: the policy and value 1x1 convs (a few filters each) over the
 //   trunk's bf16 output, one thread a board cell, with their BatchNorm and
 //   ReLU, written in float32 for the dense layers.
@@ -36,9 +37,12 @@
 // and the threads that start those gathers compute each chunk's address and
 // mask. The trunk's tiles are 128 cells, two warpgroups sharing each
 // weight stage (half the weight traffic of 64-cell tiles), four stages in
-// flight, wgmma keeping one step's group in flight while the next starts;
-// the stem, one or a few K steps, runs 64-cell tiles, three to an SM. The
-// output tile goes out through shared memory in 16-byte chunks.
+// flight, wgmma keeping one step's group in flight while the next starts,
+// one tile to an SM; where 128-cell tiles would leave the card's last
+// wave of tiles mostly empty, the caller asks for 64-cell tiles, three to
+// an SM (ops/fused_net.py, ``conv_tile``). The stem, one or a few K steps,
+// runs 64-cell tiles. The output tile goes out through shared memory in
+// 16-byte chunks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -341,9 +345,13 @@ __device__ __forceinline__ void k_loop(const Operand<TIn>& op, int M, int H,
   __syncthreads();
 }
 
-// One (kBM x kBN) tile of a conv layer's output. RESIDUAL: out = relu(bn(conv
-// (x)) + bn_r(proj(r))), else relu(bn(conv(x))).
-template <class T, bool FLAT, bool RESIDUAL, typename TIn>
+// How a conv's output takes a residual block's skip path (the entry
+// point's ``residual``).
+enum Skip { kNoSkip = 0, kProjection = 1, kIdentity = 2 };
+
+// One (BM x kBN) tile of a conv layer's output: relu(bn(conv(x)) + skip),
+// skip bn_r(proj(r)) (kProjection), r itself (kIdentity) or nothing.
+template <class T, bool FLAT, int SKIP, typename TIn>
 __global__ void __launch_bounds__(T::kThreads)
     conv_kernel(Operand<TIn> op, BatchNormArgs bn, Operand<bf16> rop,
                 BatchNormArgs rbn, bf16* __restrict__ out, int M, int H,
@@ -365,7 +373,7 @@ __global__ void __launch_bounds__(T::kThreads)
   if (has_col) {
     const BatchNormArgs* args[2] = {&bn, &rbn};
 #pragma unroll
-    for (int g = 0; g < (RESIDUAL ? 2 : 1); ++g) {
+    for (int g = 0; g < (SKIP == kProjection ? 2 : 1); ++g) {
       p[5 * g] = args[g]->bias[n0 + tid];
       p[5 * g + 1] = args[g]->gamma[n0 + tid];
       p[5 * g + 2] = args[g]->beta[n0 + tid];
@@ -378,8 +386,8 @@ __global__ void __launch_bounds__(T::kThreads)
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
   k_loop<T, FLAT>(op, M, H, W, N, m0, n0, tiles, acc);
-  float racc[64];  // the projection's sums (RESIDUAL only)
-  if constexpr (RESIDUAL) {
+  float racc[64];  // the projection's sums (kProjection only)
+  if constexpr (SKIP == kProjection) {
 #pragma unroll
     for (int i = 0; i < 64; ++i) racc[i] = 0.0f;
     k_loop<T, false>(rop, M, H, W, N, m0, n0, tiles, racc);
@@ -390,7 +398,7 @@ __global__ void __launch_bounds__(T::kThreads)
     if (has_col) {
       s = p[1] / sqrtf(p[4] + eps);
       o = (p[0] - p[3]) * s + p[2];
-      if constexpr (RESIDUAL) {
+      if constexpr (SKIP == kProjection) {
         rs = p[6] / sqrtf(p[9] + eps);
         ro = (p[5] - p[8]) * rs + p[7];
       }
@@ -418,9 +426,19 @@ __global__ void __launch_bounds__(T::kThreads)
     for (int half = 0; half < 2; ++half) {
       float v0 = acc[4 * j + 2 * half] * s_scale[f] + s_offset[f];
       float v1 = acc[4 * j + 2 * half + 1] * s_scale[f + 1] + s_offset[f + 1];
-      if constexpr (RESIDUAL) {
+      if constexpr (SKIP == kProjection) {
         v0 += racc[4 * j + 2 * half] * r_scale[f] + r_offset[f];
         v1 += racc[4 * j + 2 * half + 1] * r_scale[f + 1] + r_offset[f + 1];
+      }
+      if constexpr (SKIP == kIdentity) {
+        const int m = m0 + row0 + 8 * half;
+        if (m < M && n0 + f < N) {
+          const float2 r = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  rop.x + (long long)m * N + n0 + f));
+          v0 += r.x;
+          v1 += r.y;
+        }
       }
       *reinterpret_cast<__nv_bfloat162*>(
           staged + (row0 + 8 * half) * kOutStride + f) =
@@ -437,12 +455,12 @@ __global__ void __launch_bounds__(T::kThreads)
   }
 }
 
-template <class T, bool FLAT, bool RESIDUAL, typename TIn>
+template <class T, bool FLAT, int SKIP, typename TIn>
 cudaError_t launch_conv(const Operand<TIn>& op, const BatchNormArgs& bn,
                         const Operand<bf16>& rop, const BatchNormArgs& rbn,
                         bf16* out, int M, int H, int W, int N, float eps,
                         cudaStream_t stream) {
-  auto kernel = conv_kernel<T, FLAT, RESIDUAL, TIn>;
+  auto kernel = conv_kernel<T, FLAT, SKIP, TIn>;
   static bool sized = false;  // above 48 KB: once per kernel, before use
   if (!sized) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -458,9 +476,30 @@ cudaError_t launch_conv(const Operand<TIn>& op, const BatchNormArgs& bn,
 
 // The stem (one or a few K steps, its float32 gathers the slow part) runs
 // more, smaller tiles to an SM; the trunk shares each weight stage between
-// two warpgroups.
+// two warpgroups, or runs 64-cell tiles, three to an SM, where the caller
+// asks for them.
 using StemTiles = Tiles<1, 3>;
 using TrunkTiles = Tiles<2, 4>;
+using SmallTrunkTiles = Tiles<1, 3>;
+
+template <class T>
+cudaError_t launch_trunk(const Operand<bf16>& op, const BatchNormArgs& bn,
+                         const Operand<bf16>& rop, const BatchNormArgs& rbn,
+                         int residual, bf16* out, int M, int H, int W, int N,
+                         float eps, cudaStream_t s) {
+  switch (residual) {
+    case kNoSkip:
+      return launch_conv<T, false, kNoSkip>(op, bn, rop, rbn, out, M, H, W, N,
+                                            eps, s);
+    case kProjection:
+      return launch_conv<T, false, kProjection>(op, bn, rop, rbn, out, M, H,
+                                                W, N, eps, s);
+    case kIdentity:
+      return launch_conv<T, false, kIdentity>(op, bn, rop, rbn, out, M, H, W,
+                                              N, eps, s);
+  }
+  return cudaErrorInvalidValue;
+}
 
 // pack: table rows (weight address, offset in out, C_out, C_in, taps) of
 // int64. Each layer's (C_out, C_in, taps) float32 weight becomes C_out rows
@@ -566,18 +605,20 @@ int fused_net_pack(const long long* table, int layers, int tiles, bf16* out,
 }
 
 // One conv layer: x is (M = B*H*W, C) NHWC, float32 (x_float, the stem: no
-// residual) or bf16 (C a multiple of 8); w its packed (ks*ks*C, N) bf16
-// weight; N a multiple of 8. residual: add relu's input the 1x1 projection
-// of r ((M, N) bf16, packed weight wr (N, N)) with its BatchNorm. bm: the
-// tile's cells, 64 or 128.
+// residual, 64-cell tiles) or bf16 (C a multiple of 8); w its packed
+// (ks*ks*C, N) bf16 weight; N a multiple of 8. residual (a Skip): add to
+// relu's input the 1x1 projection of r ((M, N) bf16, packed weight wr
+// (N, N)) with its BatchNorm (1), or r itself (2; wr and rbn unread). bm:
+// the tile's cells, 64 or 128.
 int fused_net_conv(const void* x, int x_float, const bf16* w, int C, int ks,
                    const float* bias, const float* gamma, const float* beta,
                    const float* mean, const float* var, const bf16* r,
                    const bf16* wr, const float* rbias, const float* rgamma,
                    const float* rbeta, const float* rmean, const float* rvar,
                    int residual, bf16* out, int M, int H, int W, int N,
-                   float eps, void* stream) {
-  if (N % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+                   float eps, int bm, void* stream) {
+  if (N % 8 != 0 || residual < kNoSkip || residual > kIdentity)
+    return static_cast<int>(cudaErrorInvalidValue);
   const BatchNormArgs bn{bias, gamma, beta, mean, var};
   const BatchNormArgs rbn{rbias, rgamma, rbeta, rmean, rvar};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -585,18 +626,22 @@ int fused_net_conv(const void* x, int x_float, const bf16* w, int C, int ks,
   cudaError_t err;
   if (x_float) {
     const Operand<float> op{static_cast<const float*>(x), w, C, ks};
-    err = residual ? cudaErrorInvalidValue
-                   : launch_conv<StemTiles, true, false>(op, bn, rop, rbn, out,
-                                                         M, H, W, N, eps, s);
+    err = residual != kNoSkip || bm != StemTiles::BM
+              ? cudaErrorInvalidValue
+              : launch_conv<StemTiles, true, kNoSkip>(op, bn, rop, rbn, out, M,
+                                                      H, W, N, eps, s);
   } else if (C % 8 != 0) {
     err = cudaErrorInvalidValue;
   } else {
     const Operand<bf16> op{static_cast<const bf16*>(x), w, C, ks};
-    err = residual
-              ? launch_conv<TrunkTiles, false, true>(op, bn, rop, rbn, out, M,
-                                                     H, W, N, eps, s)
-              : launch_conv<TrunkTiles, false, false>(op, bn, rop, rbn, out, M,
-                                                      H, W, N, eps, s);
+    if (bm == TrunkTiles::BM)
+      err = launch_trunk<TrunkTiles>(op, bn, rop, rbn, residual, out, M, H, W,
+                                     N, eps, s);
+    else if (bm == SmallTrunkTiles::BM)
+      err = launch_trunk<SmallTrunkTiles>(op, bn, rop, rbn, residual, out, M,
+                                          H, W, N, eps, s);
+    else
+      err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

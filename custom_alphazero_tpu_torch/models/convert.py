@@ -10,7 +10,10 @@ io/checkpoint.py reads from disk without JAX):
   mean/var.
 - Flax module names: the stem is ConvBlock_0, the policy head conv
   ConvBlock_1, the value head conv ConvBlock_2; Dense_0 is the policy
-  dense, Dense_1 / Dense_2 the value MLP.
+  dense, Dense_1 / Dense_2 the value MLP. ResidualBlock_i holds conv1,
+  conv2 and the projection as ConvBlock_0, _1 and _2; a net without the
+  projection (``residual_projection=False``, the port's own) has no
+  ConvBlock_2 in its blocks, nor in its statistics and momentum.
 - The optimizer state of ``optax.sgd(schedule, momentum)`` is the tuple
   ``(TraceState(trace), ScaleByScheduleState(count))``, serialised as
   ``{"0": {"trace": <params-shaped tree>}, "1": {"count": int32}}``; with
@@ -55,7 +58,8 @@ def _conv_blocks(net: PolicyValueNet) -> Iterator[Tuple[ConvBlock, tuple]]:
     for i, block in enumerate(net.blocks):
         yield block.conv1, (f"ResidualBlock_{i}", "ConvBlock_0")
         yield block.conv2, (f"ResidualBlock_{i}", "ConvBlock_1")
-        yield block.proj, (f"ResidualBlock_{i}", "ConvBlock_2")
+        if block.proj is not None:
+            yield block.proj, (f"ResidualBlock_{i}", "ConvBlock_2")
     yield net.policy_conv, ("ConvBlock_1",)
     yield net.value_conv, ("ConvBlock_2",)
 
@@ -99,7 +103,17 @@ def _to_flax(tensor: torch.Tensor, kind: str) -> np.ndarray:
 
 def load_jax_variables(net: PolicyValueNet, params: Mapping[str, Any],
                        batch_stats: Mapping[str, Any]) -> None:
-    """Fill ``net``'s parameters and running statistics, in place."""
+    """Fill ``net``'s parameters and running statistics, in place. Raises
+    ValueError where a residual block of ``params`` has a projection
+    (ConvBlock_2) and ``net``'s has none, or the reverse."""
+    for i, block in enumerate(net.blocks):
+        saved = "ConvBlock_2" in params.get(f"ResidualBlock_{i}", {})
+        if saved != (block.proj is not None):
+            raise ValueError(
+                f"ResidualBlock_{i}: the variables {'have' if saved else 'lack'}"
+                " a projection (ConvBlock_2) and the net's block "
+                f"{'lacks' if saved else 'has'} one (residual_projection="
+                f"{block.proj is not None})")
     with torch.no_grad():
         for layout, tree in ((_param_layout(net), params),
                              (_stats_layout(net), batch_stats)):

@@ -5,6 +5,9 @@ blocks of (conv->BN->relu, conv->BN) plus a 1x1 conv->BN projection of the
 block input, added then relu'd; a policy head (1x1 conv, 2 filters ->
 flatten -> dense to logits) and a value head (1x1 conv, 1 filter -> flatten
 -> dense(value_hidden) -> relu -> dense(1) -> tanh).
+``cfg.residual_projection=False`` (the port's own option) drops the
+projection: each block adds its input itself, as AlphaGo Zero's and
+AlphaZero's blocks do (Silver et al. 2017, 2018, Methods).
 
 Input is NHWC like the JAX net, and both heads flatten in NHWC order so the
 Flax dense kernels carry over unchanged (models/convert.py). ``BatchNorm``
@@ -68,6 +71,12 @@ class BatchNorm(nn.Module):
                 x, mean, var, self.weight, self.bias, False, 0.0, self.eps)
         if self.reduce is not None:
             return self._global_forward(x)
+        if x.device.type == "cpu":
+            # PyTorch's CPU kernel, fed the convs' channels-last output in
+            # the net, returned gradients up to 1e-2 off a float64 version
+            # once the BatchNorm scales and offsets are away from 1 and 0;
+            # on a contiguous copy they agree to float32 rounding.
+            x = x.contiguous()
         out, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps)
         with torch.no_grad():
@@ -116,17 +125,20 @@ class ConvBlock(nn.Module):
 
 
 class ResidualBlock(nn.Module):
-    """Two 3x3 convs + 1x1 projected identity, add, relu."""
+    """Two 3x3 convs + the block input, add, relu; with ``projection`` the
+    input goes through a 1x1 conv->BN first (``proj``, else None)."""
 
-    def __init__(self, filters: int):
+    def __init__(self, filters: int, projection: bool = True):
         super().__init__()
         self.conv1 = ConvBlock(filters, filters)
         self.conv2 = ConvBlock(filters, filters)
-        self.proj = ConvBlock(filters, filters, kernel=1)
+        self.proj = (ConvBlock(filters, filters, kernel=1) if projection
+                     else None)
 
     def forward(self, x):
         y = self.conv2(self.conv1(x), activate=False)
-        return torch.relu(self.proj(x, activate=False) + y)
+        skip = x if self.proj is None else self.proj(x, activate=False)
+        return torch.relu(skip + y)
 
 
 class PolicyValueNet(nn.Module):
@@ -141,7 +153,8 @@ class PolicyValueNet(nn.Module):
         h, w = board_hw
         self.stem = ConvBlock(in_channels, cfg.filters)
         self.blocks = nn.ModuleList(
-            [ResidualBlock(cfg.filters) for _ in range(cfg.depth)]
+            [ResidualBlock(cfg.filters, cfg.residual_projection)
+             for _ in range(cfg.depth)]
         )
         self.policy_conv = ConvBlock(cfg.filters, cfg.policy_filters, 1)
         self.policy_dense = nn.Linear(cfg.policy_filters * h * w, num_actions)

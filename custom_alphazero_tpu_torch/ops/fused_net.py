@@ -3,7 +3,7 @@
 ``FusedForward(net)(obs)`` computes ``net(obs)`` for an eval-mode bf16
 ``PolicyValueNet`` (models/policy_value.py) with one kernel per
 convolution of the trunk and one for both head convolutions, each with the
-layer's conv bias, eval-mode BatchNorm, residual projection and ReLU in its
+layer's conv bias, eval-mode BatchNorm, residual skip and ReLU in its
 epilogue (csrc/fused_net.cu, built with nvcc by ``ops/_build.py`` on first
 use and bound through ctypes):
 
@@ -17,10 +17,13 @@ use and bound through ctypes):
   float32 observations and rounds them to bf16 on load. The epilogue, in
   float32 from the live parameters and running statistics, applies the
   conv bias and the BatchNorm as one scale and offset a channel and, in a
-  residual block's second conv, adds the block's 1x1 projection (a second
-  accumulator over the block input, its own BatchNorm), then ReLU, and
-  writes bf16: one rounding a layer, where the module path rounds after the
-  conv, the BatchNorm and the add;
+  residual block's second conv, adds the block's skip: its 1x1 projection
+  (a second accumulator over the block input, its own BatchNorm) or, in a
+  block without one (``residual_projection=False``), the block input's
+  bf16 tile itself; then ReLU, and writes bf16: one rounding a layer, where
+  the module path rounds after the conv, the BatchNorm and the add. Its
+  tiles are 128 or 64 board cells, chosen by the GEMM's shape
+  (``conv_tile``);
 - ``heads``: the policy conv (2 filters) and the value conv (1 filter) over
   the trunk's output with their BatchNorm and ReLU, written in float32.
 
@@ -48,7 +51,7 @@ and what the design does about it, is in the source's head comment.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -64,6 +67,12 @@ from custom_alphazero_tpu_torch.ops import _build
 K_STEP = 64
 # The pack kernel's tile of (C_out, K) elements.
 PACK_TILE = 32
+# A 64-cell trunk conv tile's time over half a 128-cell tile's, with an SM
+# full of either: it reads each weight stage for half as many cells. On an
+# H100 (132 SMs), at grids that fill both alike, 64-cell tiles took 1.02x
+# (c4-r5, B=1,024), 1.08x (its projection conv) and 1.05x (19 x 256,
+# B=512) the time.
+SMALL_TILE_COST = 1.05
 
 
 def applies(net: PolicyValueNet, obs: torch.Tensor) -> bool:
@@ -79,11 +88,31 @@ def applies(net: PolicyValueNet, obs: torch.Tensor) -> bool:
 
 def trunk_convs(net: PolicyValueNet):
     """The trunk's ConvBlocks in the order ``pack`` lays them out: the stem,
-    then conv1, conv2 and proj of each residual block."""
+    then conv1, conv2 and (where the block has one) proj of each residual
+    block."""
     convs = [net.stem]
     for block in net.blocks:
-        convs += [block.conv1, block.conv2, block.proj]
+        convs += [block.conv1, block.conv2]
+        if block.proj is not None:
+            convs.append(block.proj)
     return convs
+
+
+def conv_tile(m: int, n: int, sms: int) -> int:
+    """The board cells of a trunk conv's tile (by 128 filters) for an
+    (m, n) GEMM output on ``sms`` SMs: 128 (two warpgroups sharing each
+    weight stage, a tile to an SM) unless 64-cell tiles (one warpgroup,
+    three to an SM) finish the grid sooner. The 128-cell grid takes its
+    waves of tiles, each two units of 64 cells; the 64-cell grid's busiest
+    SM has ceil(tiles / sms) of them, each a unit at SMALL_TILE_COST. At
+    c4-r5's self-play shape (43,008 x 128) 128 stays; at a 19 x 256 net's
+    B=256 (10,752 x 256) 168 tiles of 128 take two waves on 132 SMs, the
+    second a quarter full, and 336 of 64 take 3 units (an H100 read 43 and
+    44 us a conv against 53 and 60 with 128-cell tiles)."""
+    tiles = -(-m // 128) * -(-n // 128)
+    big = 2 * -(-tiles // sms)
+    small = SMALL_TILE_COST * -(-2 * tiles // sms)
+    return 64 if small < big else 128
 
 
 def padded_depth(cin: int, taps: int) -> int:
@@ -161,8 +190,10 @@ def forward_plain(net: PolicyValueNet, obs: torch.Tensor):
     for block in net.blocks:
         y = torch.relu(_epilogue_plain(_conv_plain(x, block.conv1, dtype),
                                        block.conv1)).to(dtype)
-        z = (_epilogue_plain(_conv_plain(y, block.conv2, dtype), block.conv2)
-             + _epilogue_plain(_conv_plain(x, block.proj, dtype), block.proj))
+        skip = (x.float() if block.proj is None else _epilogue_plain(
+            _conv_plain(x, block.proj, dtype), block.proj))
+        z = _epilogue_plain(_conv_plain(y, block.conv2, dtype),
+                            block.conv2) + skip
         x = torch.relu(z).to(dtype)
     p, v = (torch.relu(_epilogue_plain(_conv_plain(x, head, dtype), head))
             .permute(0, 2, 3, 1).flatten(1)
@@ -188,7 +219,7 @@ def _lib():
         ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_net_pack.argtypes = [ptr, i, i, ptr, ptr]
         lib.fused_net_conv.argtypes = ([ptr, i, ptr, i, i] + [ptr] * 12
-                                       + [i, ptr, i, i, i, i, f, ptr])
+                                       + [i, ptr, i, i, i, i, f, i, ptr])
         lib.fused_net_heads.argtypes = ([ptr, i, i] + [ptr] * 6 + [i]
                                         + [ptr] * 6 + [i, f, ptr, ptr, ptr])
         for fn in (lib.fused_net_pack, lib.fused_net_conv,
@@ -200,6 +231,17 @@ def _lib():
 
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_SMS = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """The card's SMs (read once a device)."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
 
 
 def _launched(name: str, rc: int) -> None:
@@ -226,27 +268,36 @@ def pack(table: torch.Tensor, out: torch.Tensor, rows) -> None:
 
 
 def conv(x: torch.Tensor, w: torch.Tensor, block: ConvBlock, hw, out,
-         residual: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                  ConvBlock]] = None) -> None:
+         residual: Union[None, torch.Tensor,
+                         Tuple[torch.Tensor, torch.Tensor, ConvBlock]] = None
+         ) -> None:
     """Launch one conv layer on NHWC ``x``, (B, H, W, C_in) or its
-    (M, C_in) rows (float32, the stem, or bf16), into (M, N) bf16 ``out``; ``w`` is the layer's packed
-    weight (``pack_layout``). ``residual``: (block input, its packed 1x1
-    weight, the proj ConvBlock), added before the ReLU."""
+    (M, C_in) rows (float32, the stem, or bf16), into (M, N) bf16 ``out``;
+    ``w`` is the layer's packed weight (``pack_layout``). ``residual``, added
+    before the ReLU: the block input ((M, N) bf16) of an identity block, or
+    (block input, its packed 1x1 weight, the proj ConvBlock) of a block with
+    a projection."""
     h, w_ = hw
     cin = x.shape[-1]
     n = block.conv.out_channels
     m = out.shape[0]
+    bn = _bn_args(block)
     if residual is None:
-        r, wr, rbn, res = x, w, _bn_args(block), 0
+        r, wr, rbn, skip = x, w, bn, 0
+    elif isinstance(residual, torch.Tensor):
+        r, wr, rbn, skip = residual, w, bn, 2
     else:
         r, wr, rblock = residual
-        rbn, res = _bn_args(rblock), 1
+        rbn, skip = _bn_args(rblock), 1
+    tile = (64 if x.dtype == torch.float32
+            else conv_tile(m, n, _sm_count(out.device)))
     _launched("conv", _lib().fused_net_conv(
         x.data_ptr(), int(x.dtype == torch.float32), w.data_ptr(), cin,
-        block.conv.kernel_size[0], *_bn_args(block), r.data_ptr(),
-        wr.data_ptr(), *rbn, res, out.data_ptr(), m, h, w_, n,
-        block.bn.eps, _stream(out.device)))
+        block.conv.kernel_size[0], *bn, r.data_ptr(), wr.data_ptr(), *rbn,
+        skip, out.data_ptr(), m, h, w_, n, block.bn.eps, tile,
+        _stream(out.device)))
     conv.launches += 1
+    conv.identity_launches += int(skip == 2)
 
 
 def heads(x: torch.Tensor, net: PolicyValueNet, p_out, v_out) -> None:
@@ -263,9 +314,11 @@ def heads(x: torch.Tensor, net: PolicyValueNet, p_out, v_out) -> None:
 
 
 # Launches made from the host. A launch recorded into a CUDA graph counts
-# once, when recorded; its replays are not counted.
+# once, when recorded; its replays are not counted. ``identity_launches``:
+# the conv launches that added an identity block's input.
 pack.launches = 0
 conv.launches = 0
+conv.identity_launches = 0
 heads.launches = 0
 
 
@@ -333,9 +386,10 @@ class FusedForward:
             y = torch.empty_like(x)
             conv(x, next(weights), block.conv1, (h, w), y)
             out = torch.empty_like(x)
-            w1, wp = next(weights), next(weights)
-            conv(y, w1, block.conv2, (h, w), out,
-                 residual=(x, wp, block.proj))
+            w2 = next(weights)
+            skip = (x if block.proj is None
+                    else (x, next(weights), block.proj))
+            conv(y, w2, block.conv2, (h, w), out, residual=skip)
             x = out
         p = torch.empty(bsz, h * w * p_out, device=obs.device)
         v = torch.empty(bsz, h * w * v_out, device=obs.device)

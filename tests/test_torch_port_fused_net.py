@@ -32,17 +32,22 @@ from custom_alphazero_tpu_torch.runtime.train import (
     make_train_step,
 )
 
-# (actions, board (H, W), input channels): Connect-4 and chess.
-SHAPES = {"c4": (7, (6, 7), 4), "chess": (1968, (8, 8), 118)}
+# (actions, board (H, W), input channels): Connect-4, a 5x4 Connect-N and
+# chess.
+SHAPES = {"c4": (7, (6, 7), 4), "chess": (1968, (8, 8), 118),
+          "c5x4": (5, (4, 5), 4)}
 SMALL = dict(depth=2, filters=16, value_hidden=32)
 
 
-def _net(shape: str, dtype: str = "bfloat16", seed: int = 0):
+def _net(shape: str, dtype: str = "bfloat16", seed: int = 0,
+         projection: bool = True, depth: int = SMALL["depth"]):
     """An eval-mode net whose every parameter and running statistic is
-    drawn, so each term of the epilogues matters."""
+    drawn, so each term of the epilogues matters; ``projection`` False:
+    identity skips."""
     actions, hw, channels = SHAPES[shape]
-    net = PolicyValueNet(actions, ModelConfig(**SMALL, compute_dtype=dtype),
-                         channels, hw)
+    cfg = ModelConfig(**dict(SMALL, depth=depth), compute_dtype=dtype,
+                      residual_projection=projection)
+    net = PolicyValueNet(actions, cfg, channels, hw)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, t in list(net.named_parameters()) + list(
@@ -268,8 +273,11 @@ class _StandIns:
 
     def fused_net_conv(self, x, x_float, w, C, ks, *args):
         bn, (r, wr), rbn = args[:5], args[5:7], args[7:12]
-        residual, out, M, H, W, N, eps, stream = args[12:]
+        residual, out, M, H, W, N, eps, bm, stream = args[12:]
         self.calls.append(("conv", x_float, C, ks, residual))
+        # The tile the kernel would run: the stem's 64 cells, else the
+        # shape's (``conv_tile`` on an H100's 132 SMs).
+        assert bm == (64 if x_float else fused_net.conv_tile(M, N, 132))
 
         def sums(inp, width, packed, k):
             nchw = inp.view(-1, H, W, width).permute(0, 3, 1, 2)
@@ -282,9 +290,11 @@ class _StandIns:
 
         xt = _at(x, (M, C), torch.float32 if x_float else torch.bfloat16)
         y = _epilogue(sums(xt, C, w, ks), bn, N, eps)
-        if residual:
+        if residual == 1:
             rt = _at(r, (M, N), torch.bfloat16)
             y = y + _epilogue(sums(rt, N, wr, 1), rbn, N, eps)
+        elif residual == 2:
+            y = y + _at(r, (M, N), torch.bfloat16).float()
         _at(out, (M, N), torch.bfloat16).copy_(torch.relu(y))
         return 0
 
@@ -305,6 +315,7 @@ def stand_ins(monkeypatch):
     lib = _StandIns()
     monkeypatch.setattr(fused_net, "_LIB", lib)
     monkeypatch.setattr(fused_net, "_stream", lambda device: None)
+    monkeypatch.setattr(fused_net, "_sm_count", lambda device: 132)
     return lib
 
 
@@ -409,3 +420,76 @@ def test_cpu_call_runs_the_plain_version():
         want = fused_net.forward_plain(net, obs)
     assert fused_net.forward_plain.calls - calls == 2
     assert _gap(got, want) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# Identity skips (``residual_projection=False``)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("batch", [3, 256])
+@pytest.mark.parametrize("shape", ["c4", "c5x4", "chess"])
+def test_plain_fused_forward_matches_module_identity(shape, batch):
+    """The plain version of an identity-skip net against its module at the
+    bounds of ``test_plain_fused_forward_matches_module``: float32 the same
+    function up to the order of sums, bf16 within 0.05 (depth 3)."""
+    obs = _obs(shape, batch)
+    with torch.inference_mode():
+        net = _net(shape, "float32", projection=False, depth=3)
+        want = net(obs)
+        assert _gap(fused_net.forward_plain(net, obs), want) < 1e-5
+        bf16 = _net(shape, "bfloat16", projection=False, depth=3)
+        module = bf16(obs)
+        fused = fused_net.forward_plain(bf16, obs)
+    assert all(t.dtype == torch.float32 for t in fused)
+    assert _gap(module, want) < 0.05
+    assert _gap(fused, want) < 0.05
+    assert _gap(fused, module) < 0.05
+
+
+@pytest.mark.parametrize("batch", [3, 64])
+@pytest.mark.parametrize("shape", ["c4", "c5x4"])
+def test_launch_sequence_and_counters_identity(stand_ins, shape, batch):
+    """An identity-skip net's launches through the stand-ins: one conv a
+    layer (no projection in the pack), each block's second conv adding the
+    block input (residual 2, counted by ``conv.identity_launches``); the
+    result is the plain version's and, within the bf16 bound, the module's
+    in float32."""
+    net = _net(shape, projection=False, depth=3)
+    twin = _net(shape, "float32", projection=False, depth=3)
+    obs = _obs(shape, batch)
+    counts = (fused_net.conv.launches, fused_net.conv.identity_launches)
+    forward = fused_net.FusedForward(net)
+    with torch.inference_mode():
+        got = forward._forward_cuda(obs)
+        want = fused_net.forward_plain(net, obs)
+        want32 = twin(obs)
+    depth = len(net.blocks)
+    assert (fused_net.conv.launches - counts[0],
+            fused_net.conv.identity_launches - counts[1]) == (
+                1 + 2 * depth, depth)
+    rows = fused_net.pack_layout(net)[0]
+    assert len(rows) == 1 + 2 * depth
+    assert [r[0] for r in rows] == [b.conv.weight.data_ptr() for b in
+                                    fused_net.trunk_convs(net)]
+    filters = SMALL["filters"]
+    assert stand_ins.calls[1:-1] == (
+        [("conv", 1, 4, 3, 0)]
+        + [("conv", 0, filters, 3, res) for _ in range(depth)
+           for res in (0, 2)])
+    assert _gap(got, want) < 1e-2
+    assert _gap(got, want32) < 0.05
+
+
+def test_conv_tile_by_shape():
+    """128-cell tiles at c4-r5's shapes (self-play B=1,024, arena B=256);
+    64-cell tiles where 128 would leave the last wave mostly empty: a
+    19 x 256 net at B=256 (168 tiles of 128 on 132 SMs) and B=1,024,
+    chess B=128; at the 19 x 256 net's B=512 both fill the card alike and
+    128 stays."""
+    assert fused_net.conv_tile(1024 * 42, 128, 132) == 128
+    assert fused_net.conv_tile(256 * 42, 128, 132) == 128
+    assert fused_net.conv_tile(256 * 42, 256, 132) == 64
+    assert fused_net.conv_tile(512 * 42, 256, 132) == 128
+    assert fused_net.conv_tile(1024 * 42, 256, 132) == 64
+    assert fused_net.conv_tile(128 * 64, 128, 132) == 64

@@ -395,26 +395,38 @@ def test_max_game_plies():
 # The own copies: config, paths, metrics, watchdog
 # ---------------------------------------------------------------------------
 
+def _without_port_keys(tree: dict) -> dict:
+    """A config tree without the port's own ``model.residual_projection``
+    (default True, the JAX net's block)."""
+    assert tree["model"].pop("residual_projection") is True
+    return tree
+
+
 def test_config_tree_matches_jax():
     import dataclasses
 
-    assert dataclasses.asdict(Config()) == dataclasses.asdict(
-        jax_config.Config())
-    assert port_config.to_json(Config()) == jax_config.to_json(
-        jax_config.Config())
+    assert Config().model.residual_projection is True
+    assert _without_port_keys(dataclasses.asdict(Config())) == \
+        dataclasses.asdict(jax_config.Config())
+    assert _without_port_keys(json.loads(port_config.to_json(Config()))) == \
+        json.loads(jax_config.to_json(jax_config.Config()))
     with open(C4R5_CONFIG) as fp:
         text = fp.read()
     cfg = port_config.from_json(text)
-    assert port_config.to_json(cfg) == jax_config.to_json(
-        jax_config.from_json(text))
+    assert _without_port_keys(json.loads(port_config.to_json(cfg))) == \
+        json.loads(jax_config.to_json(jax_config.from_json(text)))
+    assert port_config.from_json(port_config.to_json(cfg)) == cfg
     assert cfg.model.lr_boundaries == (10000, 13000)
     assert cfg.replay.capacity == 400_000 and cfg.arena.games == 256
     overrides = {"mcts.simulations": "64", "model.lr_values": "(0.1,0.01)",
                  "model.lr_boundaries": "(5,)", "arena.deterministic": "yes",
                  "run.run_id": "x", "loop.max_sample_reuse": "1.5"}
-    assert dataclasses.asdict(apply_overrides(Config(), overrides)) == \
-        dataclasses.asdict(jax_config.apply_overrides(jax_config.Config(),
-                                                      overrides))
+    assert _without_port_keys(dataclasses.asdict(
+        apply_overrides(Config(), overrides))) == dataclasses.asdict(
+            jax_config.apply_overrides(jax_config.Config(), overrides))
+    assert apply_overrides(Config(), {
+        "model.residual_projection": "false"}).model.residual_projection \
+        is False
     assert port_config.parse_cli_overrides(["--a.b=1", "--c=x=y"]) == \
         jax_config.parse_cli_overrides(["--a.b=1", "--c=x=y"])
 
