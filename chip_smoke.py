@@ -190,20 +190,27 @@ Phases (any failed check raises and exits non-zero):
     search graph gives a fresh capture's results, on the fused and the
     module path; the forward's device time beside its bound, the plain
     version's and the module path's (cuDNN), and each kernel's, at c4-r5's
-    B=1,024 and the 19 x 256 net's B=256. The kernels' line reports the
-    fused net's launches counted from zero over main-path runs: phase 11's
-    arena, phase 12's ``run()`` and this phase's captured searches (c4-r5
-    and 19 x 256), each held to its forwards (``FusedNetCount``).
+    B=1,024 and the 19 x 256 net's B=256; each trunk conv of those two
+    shapes through the pipelined kernel and conv_tile's (``conv_times``:
+    us a launch, the bound, the plain layer, cuDNN's conv alone). The
+    kernels' line reports the fused net's launches counted from zero over
+    main-path runs: phase 11's arena, phase 12's ``run()`` and this phase's
+    captured searches (c4-r5 and 19 x 256), each held to its forwards
+    (``FusedNetCount``, the block convs through the pipelined kernel).
 27. The kernels' JSON line, the card's line, and the result line.
 
 ``python3 chip_smoke.py --launch-shapes`` runs a tuning aid in place of the
 phases: K1 built with 1, 2, 4 and 8 games (warps) per block, each checked
-and timed as in phase 3. ``python3 chip_smoke.py --fused-net`` runs phase
-26 alone.
+and timed as in phase 3. ``python3 chip_smoke.py --conv-plans`` runs
+another: every tile and cluster size of the pipelined conv at the trunk
+shapes of the benchmark's cells and the arenas, each checked and timed
+beside conv_tile's kernel (``fused_net.conv_plan``'s cost model was fitted
+to it). ``python3 chip_smoke.py --fused-net`` runs phase 26 alone.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -942,8 +949,10 @@ class FusedNetCount:
     it sent to the module path on CUDA and the plain version's calls.
     ``check(name, depth, identity)`` holds the counters to the forwards:
     one pack, 1 + 2 x depth convs (``identity`` of them adding an identity
-    block's input) and one heads launch each, no module-path evaluation on
-    the card, no plain forward."""
+    block's input; the 2 x depth block convs through the pipelined kernel,
+    the stem through conv_tile's: every net counted here has a multiple of
+    64 filters) and one heads launch each, no module-path evaluation on the
+    card, no plain forward."""
 
     def __enter__(self):
         from custom_alphazero_tpu_torch.ops import fused_net
@@ -952,6 +961,7 @@ class FusedNetCount:
         fused_net.pack.launches = 0
         fused_net.conv.launches = 0
         fused_net.conv.identity_launches = 0
+        fused_net.conv.pipelined_launches = 0
         fused_net.heads.launches = 0
         self.recorded = self.eager = self.module = 0
         self.plain = fused_net.forward_plain.calls
@@ -986,12 +996,14 @@ class FusedNetCount:
         forwards = self.recorded + self.eager
         counts = {"pack": fn.pack.launches, "conv": fn.conv.launches,
                   "conv_identity": fn.conv.identity_launches,
+                  "conv_pipelined": fn.conv.pipelined_launches,
                   "heads": fn.heads.launches,
                   "forwards_recorded": self.recorded,
                   "forwards_eager": self.eager}
         check(counts["pack"] == forwards == counts["heads"]
               and counts["conv"] == (1 + 2 * depth) * forwards
-              and counts["conv_identity"] == identity * forwards,
+              and counts["conv_identity"] == identity * forwards
+              and counts["conv_pipelined"] == 2 * depth * forwards,
               f"{name}: fused net launches {counts} do not match its "
               f"forwards")
         check(self.module == 0, f"{name}: {self.module} evaluations took "
@@ -3297,6 +3309,233 @@ def az_net(device):
     return net
 
 
+def conv_layer_case(device, bsz: int, filters: int, skip: str,
+                    seed: int = 0):
+    """One trunk conv layer at Connect-4's board (6 x 7), ``filters`` in
+    and out, its skip "none", "projection" or "identity": (the bf16 NHWC
+    input rows, the packed weight, the ConvBlock, the ``residual`` argument
+    of ``fused_net.conv``, the plain layer's bf16 output rows, the plain
+    layer as a function of no arguments). Weights, biases and BatchNorm
+    parameters and statistics drawn from ``seed``; the input and the skip
+    are ReLU'd normals rounded to bf16."""
+    import torch.nn.functional as F
+
+    from custom_alphazero_tpu_torch.models.policy_value import ConvBlock
+    from custom_alphazero_tpu_torch.ops import fused_net
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h, w = 6, 7
+    m = bsz * h * w
+
+    def block(kernel):
+        b = ConvBlock(filters, filters, kernel).to(device).eval()
+        with torch.no_grad():
+            b.conv.weight.copy_(torch.randn(
+                b.conv.weight.shape, generator=gen, device=device)
+                / (filters * kernel * kernel) ** 0.5)
+            b.conv.bias.copy_(0.05 * torch.randn(filters, generator=gen,
+                                                 device=device))
+            for t, lo, hi in ((b.bn.weight, 0.5, 1.5),
+                              (b.bn.running_var, 0.5, 2.0)):
+                t.copy_(lo + (hi - lo) * torch.rand(filters, generator=gen,
+                                                    device=device))
+            for t in (b.bn.bias, b.bn.running_mean):
+                t.copy_(0.1 * torch.randn(filters, generator=gen,
+                                          device=device))
+        packed = b.conv.weight.permute(0, 2, 3, 1).flatten(1)
+        packed = F.pad(packed, (0, fused_net.padded_depth(
+            filters, kernel * kernel) - packed.shape[1]))
+        return b, packed.bfloat16().contiguous()
+
+    def rows():
+        return torch.randn(m, filters, generator=gen, device=device).relu(
+            ).bfloat16()
+
+    def plain(inp, b):
+        nchw = inp.view(bsz, h, w, filters).permute(0, 3, 1, 2)
+        return fused_net._epilogue_plain(
+            fused_net._conv_plain(nchw, b, torch.bfloat16), b)
+
+    x = rows()
+    conv_block, packed = block(3)
+    residual = None
+    if skip == "identity":
+        residual = rows()
+    elif skip == "projection":
+        proj, wr = block(1)
+        residual = (rows(), wr, proj)
+
+    def layer():
+        z = plain(x, conv_block)
+        if skip == "identity":
+            z = z + residual.view(bsz, h, w, filters).permute(
+                0, 3, 1, 2).float()
+        elif skip == "projection":
+            z = z + plain(residual[0], proj)
+        return torch.relu(z).permute(0, 2, 3, 1).reshape(
+            m, filters).bfloat16()
+
+    return x, packed, conv_block, residual, layer(), layer
+
+
+def bf16_steps(got, want) -> float:
+    """The largest gap in bf16 steps (2**-8) of ``want``'s magnitude."""
+    scale = want.float().abs().max().item() * 2.0 ** -8
+    return (got.float() - want.float()).abs().max().item() / scale
+
+
+def pipelined_conv_check(device, bsz: int, filters: int, skip: str,
+                         plan=None) -> dict:
+    """One conv layer (``conv_layer_case``) through the pipelined kernel
+    with ``plan`` (``conv_plan``'s where None) and through conv_tile's:
+    the pipelined output's gap from the plain layer and from the other
+    kernel in bf16 steps, whether the two kernels agree bit for bit, and the
+    pipelined launches counted."""
+    from custom_alphazero_tpu_torch.ops import fused_net
+
+    x, packed, block, residual, want, _ = conv_layer_case(device, bsz,
+                                                          filters, skip)
+    m = x.shape[0]
+    if plan is None:
+        plan = fused_net.conv_plan(m, filters, filters, 9,
+                                   fused_net._sm_count(device),
+                                   projection=skip == "projection")
+    got = torch.empty(m, filters, dtype=torch.bfloat16, device=device)
+    present = torch.empty_like(got)
+    with torch.inference_mode():
+        fused_net.launch_conv(x, packed, block, (6, 7), present, residual,
+                              None)
+        launches = fused_net.conv.pipelined_launches
+        fused_net.launch_conv(x, packed, block, (6, 7), got, residual, plan)
+        launches = fused_net.conv.pipelined_launches - launches
+        torch.cuda.synchronize()
+    return {"plan": tuple(plan), "steps_plain": bf16_steps(got, want),
+            "steps_present": bf16_steps(got, present),
+            "bit_equal": torch.equal(got, present),
+            "pipelined_launches": launches}
+
+
+def time_launches(fn, repeats: int = 20) -> float:
+    """Mean device ms of ``fn``'s launches, queued behind a GPU sleep."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
+# The trunk conv shapes of the benchmark's cells and the arenas: (label,
+# batch, filters, skip).
+CONV_SHAPES = (("c4-r5 B=1024", 1024, 128, "none"),
+               ("c4-r5 B=1024", 1024, 128, "projection"),
+               ("c4-r5 B=256", 256, 128, "none"),
+               ("c4-r5 B=256", 256, 128, "projection"),
+               ("az19x256 B=256", 256, 256, "none"),
+               ("az19x256 B=256", 256, 256, "identity"),
+               ("az19x256 B=1024", 1024, 256, "identity"))
+
+
+def conv_plans(device) -> None:
+    """A tuning aid for ``fused_net.conv_plan``: at each of CONV_SHAPES,
+    conv_tile's kernel and the pipelined kernel with every tile and cluster
+    size, each checked against the plain layer, and their device times."""
+    from custom_alphazero_tpu_torch.ops import fused_net
+
+    sms = fused_net._sm_count(device)
+    for label, bsz, filters, skip in CONV_SHAPES:
+        x, packed, block, residual, want, _ = conv_layer_case(
+            device, bsz, filters, skip)
+        m = x.shape[0]
+        out = torch.empty(m, filters, dtype=torch.bfloat16, device=device)
+        chosen = fused_net.conv_plan(m, filters, filters, 9, sms,
+                                     projection=skip == "projection")
+        flops = 2 * m * filters * 9 * filters * (
+            1 + (skip == "projection") / 9)
+        with torch.inference_mode():
+            def run(plan):
+                return lambda: fused_net.launch_conv(
+                    x, packed, block, (6, 7), out, residual, plan)
+            base_ms = time_launches(run(None))
+            present = out.clone()
+            log(f"conv plans, {label} {skip}: conv_tile's kernel "
+                f"{base_ms * 1e3:.1f} us ({flops / base_ms / 1e9 / 989:.1%} "
+                f"of the bf16 peak); conv_plan picks {tuple(chosen)}")
+            for (bm, bn), cluster in itertools.product(fused_net.UNIT_US,
+                                                       (1, 2, 4)):
+                if (bn == 256 and filters <= 128
+                        or skip == "projection" and (bm, bn) != (128, 128)):
+                    continue
+                plan = fused_net.ConvPlan(bm, bn, cluster)
+                try:
+                    ms = time_launches(run(plan))
+                except RuntimeError as err:
+                    log(f"  {tuple(plan)}: {err}")
+                    continue
+                log(f"  {tuple(plan)}: {ms * 1e3:.1f} us "
+                    f"({flops / ms / 1e9 / 989:.1%}), "
+                    f"{bf16_steps(out, want):.2f} steps from plain, bit-equal"
+                    f" to conv_tile's: {torch.equal(out, present)}")
+
+
+def conv_times(device) -> dict:
+    """Each trunk conv of the benchmark's self-play paths (c4-r5 at
+    B=1,024, the 19 x 256 net at B=256) on the card: the pipelined kernel
+    with ``conv_plan``'s launch and conv_tile's kernel (both checked against
+    the plain layer, and whether they agree bit for bit), the bound (the
+    conv's FLOPs at the bf16 peak), the plain layer (TF32 off) and cuDNN's
+    bf16 conv alone (the library yardstick): us a launch."""
+    import torch.nn.functional as F
+
+    from custom_alphazero_tpu_torch.ops import fused_net
+
+    sms = fused_net._sm_count(device)
+    times = {}
+    for label, bsz, filters, skip in (CONV_SHAPES[0], CONV_SHAPES[1],
+                                      CONV_SHAPES[4], CONV_SHAPES[5]):
+        x, packed, block, residual, want, plain = conv_layer_case(
+            device, bsz, filters, skip)
+        m = x.shape[0]
+        plan = fused_net.conv_plan(m, filters, filters, 9, sms,
+                                   projection=skip == "projection")
+        flops = 2 * m * filters * filters * (9 + (skip == "projection"))
+        out = torch.empty_like(want)
+        with torch.inference_mode():
+            pipelined_us = 1e3 * time_launches(lambda: fused_net.launch_conv(
+                x, packed, block, (6, 7), out, residual, plan))
+            got = out.clone()
+            present_us = 1e3 * time_launches(lambda: fused_net.launch_conv(
+                x, packed, block, (6, 7), out, residual, None))
+            torch.backends.cudnn.allow_tf32 = False
+            plain_us = 1e3 * time_launches(plain, 5)
+            torch.backends.cudnn.allow_tf32 = True
+            nchw = x.view(bsz, 6, 7, filters).permute(0, 3, 1, 2)
+            weight = block.conv.weight.bfloat16()
+            library_us = 1e3 * time_launches(
+                lambda: F.conv2d(nchw, weight, None, padding=1))
+        name = f"{label} {skip}"
+        times[name] = {
+            "plan": tuple(plan), "pipelined_us": pipelined_us,
+            "present_us": present_us, "bound_us": flops / 989e6,
+            "plain_us": plain_us, "library_us": library_us,
+            "steps_plain": bf16_steps(got, want),
+            "bit_equal_present": torch.equal(got, out)}
+        check(times[name]["steps_plain"] <= FUSED_LAYER_STEPS,
+              f"{name}: the pipelined conv is "
+              f"{times[name]['steps_plain']:.2f} bf16 steps from plain")
+        log(f"fused net conv, {name}: pipelined {tuple(plan)} "
+            f"{pipelined_us:.1f} us ({flops / pipelined_us / 989e6:.1%} of "
+            f"the bf16 peak), conv_tile's kernel {present_us:.1f} us, bound "
+            f"{flops / 989e6:.1f} us, plain layer {plain_us:.1f} us, cuDNN "
+            f"bf16 conv alone {library_us:.1f} us; bit-equal to conv_tile's:"
+            f" {times[name]['bit_equal_present']}")
+    return times
+
+
 def fused_net_phase(device) -> dict:
     """Phase 26: ops/fused_net.py's kernels on the card. Each kernel against
     its plain version (the pack bit-equal, every conv layer and the heads
@@ -3345,11 +3584,6 @@ def fused_net_phase(device) -> dict:
     def gap(got, want):
         return max((g - w).abs().max().item() for g, w in zip(got, want))
 
-    def layer_steps(got, want):
-        """The largest gap in bf16 steps (2**-8) of the layer's magnitude."""
-        scale = want.float().abs().max().item() * 2.0 ** -8
-        return (got.float() - want.float()).abs().max().item() / scale
-
     compile_s = None
     for label, case_net, obs in cases:
         forward = fused_net.FusedForward(case_net)
@@ -3387,14 +3621,14 @@ def fused_net_phase(device) -> dict:
             fused_net.conv(x_flat, next(offsets), case_net.stem, (h, w), out)
             want = torch.relu(plain_layer(x_nchw, case_net.stem))
             nhwc = want.permute(0, 2, 3, 1).reshape(m, -1)
-            worst = max(worst, layer_steps(out, nhwc))
+            worst = max(worst, bf16_steps(out, nhwc))
             x_flat = out
             for block in case_net.blocks:
                 x_nchw = x_flat.view(bsz, h, w, -1).permute(0, 3, 1, 2)
                 y = torch.empty_like(x_flat)
                 fused_net.conv(x_flat, next(offsets), block.conv1, (h, w), y)
                 want_y = torch.relu(plain_layer(x_nchw, block.conv1))
-                worst = max(worst, layer_steps(
+                worst = max(worst, bf16_steps(
                     y, want_y.permute(0, 2, 3, 1).reshape(m, -1)))
                 z = torch.empty_like(x_flat)
                 w2 = next(offsets)
@@ -3409,7 +3643,7 @@ def fused_net_phase(device) -> dict:
                                              block.proj))
                     skip = plain_layer(x_nchw, block.proj)
                 want_z = torch.relu(plain_layer(y_nchw, block.conv2) + skip)
-                worst = max(worst, layer_steps(
+                worst = max(worst, bf16_steps(
                     z, want_z.permute(0, 2, 3, 1).reshape(m, -1)))
                 x_flat = z
             pc = case_net.policy_conv.conv.out_channels
@@ -3527,6 +3761,7 @@ def fused_net_phase(device) -> dict:
 
     # Times at the self-play shape (TF32 back on for the module path).
     torch.backends.cudnn.deterministic = False
+    conv_us = conv_times(device)
     torch.backends.cudnn.allow_tf32 = True
     obs = cases[0][2]
     forward = fused_net.FusedForward(net)
@@ -3599,6 +3834,7 @@ def fused_net_phase(device) -> dict:
         "az19x256_b256": {"ms": az_ms, "bound_ms": az_bound_ms,
                           "library_ms": az_module_ms,
                           "launches_captured_search": az_counts},
+        "convs_us": conv_us,
     }
 
 
@@ -3632,6 +3868,9 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:] == ["--launch-shapes"]:
         launch_shapes(torch.device("cuda"))
+        return 0
+    if sys.argv[1:] == ["--conv-plans"]:
+        conv_plans(torch.device("cuda"))
         return 0
     if sys.argv[1:] == ["--fused-net"]:
         print(json.dumps({"kernels": [fused_net_phase(torch.device("cuda"))]}))

@@ -3,26 +3,43 @@
 // Replaces no TPU kernel: the JAX package leaves the net to XLA, which fuses
 // each layer's BatchNorm, bias, add and ReLU into the convolution on the
 // TPU. On the card the module path ran each of those as a separate pass over
-// the activation. Three kernels:
+// the activation. Four kernels:
 //
 // - pack: every trunk conv weight, read from the live float32 parameters
 //   through a table of addresses and rounded to bf16 (as autocast rounds
 //   it), into one buffer: C_out rows of (tap, C_in), zero-padded to whole K
 //   steps, the GEMM's K-major N x K operand. One launch a forward.
-// - conv: an implicit GEMM on NHWC activations. One GEMM row is one board
-//   cell: M = B x H x W, N = filters, K = taps x C_in. No im2col tensor is
-//   written: each K step gathers one tap's channels of the shifted cells
-//   with masked (zero-filling) cp.async loads at the board's edges and at a
-//   channel tail. The stem reads the float32 observations over the flat
-//   K = taps x C_in and rounds them to bf16 on load. wgmma (m64n128k16, both
-//   operands from 128-byte-swizzled shared memory) with float32 sums. A
-//   residual block's second conv takes the block's skip path: with a 1x1
-//   projection of the block input it runs a second K loop into a second
-//   accumulator; with an identity skip it adds the block input's bf16 tile,
-//   read in the epilogue (no second K loop). The epilogue, in float32 from
-//   the live parameters and running statistics, applies each conv's bias
-//   and eval-mode BatchNorm as one scale and offset a channel, adds the
-//   skip, applies ReLU and writes bf16: one rounding a layer.
+// - conv_kernel_ws: a trunk conv with bf16 input whose C_in and filters are
+//   multiples of 64 (every block conv of the port's nets). An implicit GEMM
+//   on NHWC activations: one GEMM row is one board cell, M = B x H x W,
+//   N = filters, K = taps x C_in, each K step one tap's 64 channels.
+//   Warp-specialised: one producer thread keeps a ring of shared-memory
+//   stages full by TMA, each stage with a full and an empty mbarrier. A
+//   step's A tile is loaded in TMA's im2col mode (the tap is the im2col
+//   offset; cells past the board's edges and the batch read the
+//   out-of-bounds zeros: no im2col tensor, no thread computes an address or
+//   a mask); its B tile is a box of the packed weight, split between the
+//   CTAs of a cluster along M (same filters) and multicast to all of them.
+//   Consumer warpgroups wait on a stage's full barrier, issue wgmma
+//   (m64n128k16 or m64n256k16, both operands 128-byte swizzled, float32
+//   sums in the same K order as conv_kernel's), keep one group in flight
+//   and release the stage on the empty barrier of every CTA of the cluster:
+//   no block-wide barrier in the K loop. A 1x1 projection's K loop runs
+//   through the same ring into a second accumulator; an identity skip's
+//   bf16 tile is loaded by TMA while the K loop runs. The epilogue, in
+//   float32 from the live parameters and running statistics, applies the
+//   conv's bias and eval-mode BatchNorm as one scale and offset a channel,
+//   adds the skip, applies ReLU and writes bf16 (one rounding a layer)
+//   through shared memory in 16-byte chunks. ops/fused_net.py's
+//   ``conv_plan`` picks the tile (64, 128 or 192 cells by 128 or 256
+//   filters) and the cluster (1 or 4 CTAs) from the GEMM's shape.
+// - conv_kernel: the stem, which reads the float32 observations over the
+//   flat K = taps x C_in and rounds them to bf16 on load, and any bf16
+//   trunk conv conv_kernel_ws does not take (C_in and filters multiples of
+//   8, not both of 64): every
+//   thread gathers both operands with masked cp.async and the block meets
+//   at a barrier each K step; the same epilogue (the identity skip read
+//   after the K loop).
 // - heads: the policy and value 1x1 convs (a few filters each) over the
 //   trunk's bf16 output, one thread a board cell, with their BatchNorm and
 //   ReLU, written in float32 for the dense layers.
@@ -31,19 +48,18 @@
 // 0.109 ms at the bf16 peak, against about 0.074 ms of its bytes read and
 // written once; the tensor cores bound it. Every layer is one launch with
 // its whole epilogue in registers, so an activation is written once, in
-// bf16, and read only by the next layer. What keeps a conv below the peak
-// is feeding wgmma: every tile reads the layer's whole packed weight (295 KB
-// at 128 filters) and nine shifted copies of its rows through L2 and L1,
-// and the threads that start those gathers compute each chunk's address and
-// mask. The trunk's tiles are 128 cells, two warpgroups sharing each
-// weight stage (half the weight traffic of 64-cell tiles), four stages in
-// flight, wgmma keeping one step's group in flight while the next starts,
-// one tile to an SM; where 128-cell tiles would leave the card's last
-// wave of tiles mostly empty, the caller asks for 64-cell tiles, three to
-// an SM (ops/fused_net.py, ``conv_tile``). The stem, one or a few K steps,
-// runs 64-cell tiles. The output tile goes out through shared memory in
-// 16-byte chunks.
+// bf16, and read only by the next layer. conv_kernel stayed below a third
+// of the peak feeding wgmma: its threads computed every gather's address and
+// mask and the block met at a barrier each step. With both operands loaded
+// by TMA, builds without the A or without the B loads ran no faster at the
+// 19 x 256 shape: what keeps conv_kernel_ws at 40-50% of the peak is each
+// CTA's fixed cost (the pipeline's fill, the epilogue, about 5 us a round
+// of CTAs) and the last round of tiles, which ``conv_plan`` weighs. The
+// weight multicast pays 2% only where a tile's weight box is wider than
+// its cells. The barriers take the CTA-scope defaults: cluster-scope
+// release and acquire cost a K step a microsecond.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -124,9 +140,10 @@ __device__ __forceinline__ uint64_t descriptor(uint32_t addr) {
 
 // Keeps the compiler from moving the accumulators across wgmma's
 // asynchronous window.
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
@@ -329,7 +346,7 @@ __device__ __forceinline__ void k_loop(const Operand<TIn>& op, int M, int H,
     cp_async_commit();
     const uint32_t a_tile = base + (kt % kStages) * kStage;
     const uint32_t b_tile = a_tile + T::kATile;
-    fence_operands(acc);
+    fence_acc(acc);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
@@ -337,10 +354,10 @@ __device__ __forceinline__ void k_loop(const Operand<TIn>& op, int M, int H,
                        descriptor(b_tile + 32 * kk));
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-    fence_operands(acc);
+    fence_acc(acc);
   }
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-  fence_operands(acc);
+  fence_acc(acc);
   cp_async_wait<0>();
   __syncthreads();
 }
@@ -501,6 +518,626 @@ cudaError_t launch_trunk(const Operand<bf16>& op, const BatchNormArgs& bn,
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// The pipelined trunk conv (conv_kernel_ws): bf16 input, C_in and N
+// multiples of kBK, so that every K step is one tap's whole 64-channel slice
+// (one 128-byte row of each operand).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_k16(float (&d)[64], uint64_t a,
+                                          uint64_t b) {
+  wgmma_m64n128k16(d, a, b);
+}
+
+__device__ __forceinline__ void wgmma_k16(float (&d)[128], uint64_t a,
+                                          uint64_t b) {
+  wgmma_m64n256k16(d, a, b);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Waits for the completion of the barrier's phase of parity ``parity``. A
+// wait that outlasts 2^26 tries (seconds, where a step takes microseconds)
+// traps: a fault in the pipeline's accounting ends the launch with an error
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    if (tries == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One arrival, with the transaction bytes the phase still waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// One arrival on the barrier at ``bar`` in CTA ``cta`` of the cluster (with
+// the default CTA-scope release: cluster scope cost a K step a microsecond
+// on an H100).
+__device__ __forceinline__ void mbar_arrive_at(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+      ::"r"(bar), "r"(cta)
+      : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The 2-D box at (x0, x1) of ``map`` into ``dst``, completing on ``bar``,
+// written to every CTA of the cluster at the same offset (csize > 1) or to
+// this CTA's alone.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int x0, int x1, uint32_t bar,
+                                         uint32_t csize) {
+  const uint64_t desc = reinterpret_cast<uint64_t>(map);
+  if (csize > 1) {
+    const uint16_t mask = static_cast<uint16_t>((1u << csize) - 1);
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
+            dst),
+        "l"(desc), "r"(bar), "r"(x0), "r"(x1), "h"(mask)
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+        "l"(desc), "r"(bar), "r"(x0), "r"(x1)
+        : "memory");
+  }
+}
+
+// Fetches a TMA descriptor ahead of its first load.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// One tap's channels c..c+63 of a column of cells (``map``'s pixels per
+// column) into ``dst``: the column's first cell's receptive field starts
+// at (w, h) of image n, and the tap reads it at offset (dw, dh); cells past
+// the board's edges and past the batch read zeros.
+__device__ __forceinline__ void tma_load_im2col(uint32_t dst,
+                                                const CUtensorMap* map, int c,
+                                                int w, int h, int n,
+                                                uint16_t dw, uint16_t dh,
+                                                uint32_t bar) {
+  const uint64_t desc = reinterpret_cast<uint64_t>(map);
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n"
+      ::"r"(dst), "l"(desc), "r"(bar), "r"(c), "r"(w), "r"(h), "r"(n),
+      "h"(dw), "h"(dh)
+      : "memory");
+}
+
+// A pipelined tile: BM = 64 x WG board cells (WG consumer warpgroups) by BN
+// filters, and one producer warp. A ring of kStages stages in shared
+// memory, each the step's A tile (BM cells x 64 channels) and B tile (BN
+// filters x 64 K), 128-byte swizzled; the identity skip's tile beside it
+// (BN / 64 swizzled boxes of BM rows x 64 filters). The small tile (one
+// warpgroup of 128 filters) sizes its ring for two CTAs an SM.
+template <int WG_, int BN_, int SKIP_>
+struct Pipe {
+  static constexpr int WG = WG_;
+  static constexpr int BN = BN_;
+  static constexpr int SKIP = SKIP_;
+  static constexpr int BM = 64 * WG;
+  static constexpr int kConsumers = 128 * WG;
+  static constexpr int kThreads = kConsumers + 32;
+  static constexpr int kAcc = BN / 2;  // accumulators a thread
+  static constexpr int kMinBlocks = WG == 1 && BN == 128 ? 2 : 1;
+  static constexpr int kATile = BM * 128;  // bytes
+  static constexpr int kBTile = BN * 128;
+  static constexpr int kStage = kATile + kBTile;
+  static constexpr int kRow = BN + 8;  // staged output rows, bf16
+  static constexpr int kSkip = SKIP == kIdentity ? BM * BN * 2 : 0;
+  static constexpr int kMaxStages = 6;
+  // The epilogue's four arrays of BN floats, then the barriers.
+  static constexpr int kHead =
+      (16 * BN + 8 * (2 * kMaxStages + 1) + 1023) / 1024 * 1024;
+  static constexpr int kBudget = (kMinBlocks == 2 ? 113 : 227) * 1024;
+  static constexpr int kFit = (kBudget - kHead - kSkip) / kStage;
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
+  static constexpr int kSmem = kHead + kStages * kStage + kSkip;
+  static_assert(kStages >= 2, "a ring of at least two stages");
+  static_assert(BM * kRow * 2 <= kStages * kStage, "staging fits the ring");
+};
+
+// The producer's side of one K loop (one thread): for each step, wait until
+// every CTA of the cluster has released the ring's stage, expect the
+// stage's bytes, load the A tile (one tap's 64 channels of the tile's
+// shifted cells, by TMA in im2col mode: zeros past the board's edges) and
+// this CTA's slice of the B tile (BN / csize filters), which TMA writes to
+// every CTA of the cluster. A CTA past M loads no A tile. ``t`` counts steps
+// over both loops; ``side()`` runs once the ring's first stages are in
+// flight.
+template <class P, class Side>
+__device__ __forceinline__ void produce(const CUtensorMap* xmap,
+                                        const CUtensorMap* wmap, int C, int ks,
+                                        int steps, int& t, bool cells, int h0,
+                                        int w0, int b0, int n0, uint32_t ring,
+                                        uint32_t full0, uint32_t empty0,
+                                        uint32_t rank, uint32_t csize,
+                                        Side side) {
+  const int pad = ks / 2;
+  const int slice = P::BN / static_cast<int>(csize);
+  int dh = 0, dw = 0, c0 = 0, k_col = 0;  // the tap's offsets from (h0, w0)
+  for (int i = 0; i < steps; ++i, ++t) {
+    const int s = t % P::kStages;
+    const uint32_t full = full0 + 8 * s;
+    mbar_wait(empty0 + 8 * s, ((t / P::kStages) & 1) ^ 1);
+    const uint32_t a_tile = ring + s * P::kStage;
+    mbar_expect_tx(full, P::kBTile + (cells ? P::kATile : 0));
+    if (cells)
+      tma_load_im2col(a_tile, xmap, c0, w0 - pad, h0 - pad, b0,
+                      static_cast<uint16_t>(dw), static_cast<uint16_t>(dh),
+                      full);
+    tma_load(a_tile + P::kATile + rank * slice * 128, wmap, k_col,
+             n0 + static_cast<int>(rank) * slice, full, csize);
+    if (i == (steps < P::kStages ? steps : P::kStages) - 1) side();
+    k_col += kBK;
+    c0 += kBK;
+    if (c0 == C) {
+      c0 = 0;
+      if (++dw == ks) {
+        dw = 0;
+        ++dh;
+      }
+    }
+  }
+}
+
+// The consumers' side of one K loop into ``acc``: wait for a stage, issue
+// the step's four wgmma (one group), keep it in flight while the previous
+// group completes, then release the previous step's stage in every CTA of
+// the cluster (lane i of each warp arrives at CTA i).
+template <class P>
+__device__ __forceinline__ void consume(int steps, int& t, uint32_t ring,
+                                        uint32_t full0, uint32_t empty0,
+                                        uint32_t csize, int wg, int lane,
+                                        float (&acc)[P::kAcc]) {
+  for (int i = 0; i < steps; ++i, ++t) {
+    const int s = t % P::kStages;
+    mbar_wait(full0 + 8 * s, (t / P::kStages) & 1);
+    const uint32_t a_tile = ring + s * P::kStage + wg * 64 * 128;
+    const uint32_t b_tile = ring + s * P::kStage + P::kATile;
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_k16(acc, descriptor(a_tile + 32 * kk),
+                descriptor(b_tile + 32 * kk));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    fence_acc(acc);
+    if (t > 0 && lane < static_cast<int>(csize))
+      mbar_arrive_at(empty0 + 8 * ((t - 1) % P::kStages), lane);
+  }
+}
+
+// The TMA maps of one pipelined launch: the packed weight (``w``) and the
+// input's im2col view (``x``) of the conv, the same of the 1x1 projection
+// (``rw``, ``rx``), and the identity skip's tiles (``skip``). Unused maps
+// repeat ``w``.
+struct Maps {
+  CUtensorMap w, x, rw, rx, skip;
+};
+
+// One (BM x BN) tile of a trunk conv's output, as conv_kernel's (the same
+// K order, float32 sums and epilogue), fed by a producer warp. A cluster's
+// CTAs share n0 and split each weight box between them.
+template <class P>
+__global__ void __launch_bounds__(P::kThreads, P::kMinBlocks)
+    conv_kernel_ws(const __grid_constant__ Maps maps, int C, int ks,
+                   BatchNormArgs bn, BatchNormArgs rbn,
+                   bf16* __restrict__ out, int M, int H, int W, int N,
+                   float eps) {
+  constexpr int S = P::kStages;
+  constexpr int BN = P::BN;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  float* s_scale = reinterpret_cast<float*>(smem);
+  float* s_offset = s_scale + BN;
+  float* r_scale = s_offset + BN;
+  float* r_offset = r_scale + BN;
+  const uint32_t full0 = smem_addr(smem + 16 * BN);
+  const uint32_t empty0 = full0 + 8 * S;
+  const uint32_t skip_bar = empty0 + 8 * S;
+  unsigned char* ring_ptr = smem + P::kHead;
+  const uint32_t ring = smem_addr(ring_ptr);
+  unsigned char* skip_tile = ring_ptr + S * P::kStage;
+  const int tid = threadIdx.x;
+  const uint32_t csize = cluster_size();
+  const int m0 = blockIdx.x * P::BM;
+  const int n0 = blockIdx.y * BN;
+  if (tid == 0) {
+    if (ring % 1024 != 0) __trap();  // the swizzle needs it
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);  // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, 4 * P::WG * csize);  // each consumer warp
+    }
+    mbar_init(skip_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Every barrier of the cluster initialised before any CTA arrives at one
+  // or writes into another's ring.
+  cluster_sync();
+  const int steps = ks * ks * (C / kBK);
+  const int rsteps = P::SKIP == kProjection ? N / kBK : 0;
+
+  if (tid >= P::kConsumers) {
+    if (tid == P::kConsumers) {
+      const uint32_t rank = cluster_rank();
+      const int hw = H * W;
+      const bool cells = m0 < M;
+      const int b0 = m0 / hw;
+      const int h0 = (m0 % hw) / W;
+      const int w0 = m0 % W;
+      prefetch_map(&maps.x);
+      prefetch_map(&maps.w);
+      if constexpr (P::SKIP == kProjection) {
+        prefetch_map(&maps.rx);
+        prefetch_map(&maps.rw);
+      }
+      if constexpr (P::SKIP == kIdentity) prefetch_map(&maps.skip);
+      int t = 0;
+      // The identity skip's tile, loaded while the K loop runs.
+      auto skip = [&]() {
+        if constexpr (P::SKIP == kIdentity) {
+          mbar_expect_tx(skip_bar, P::kSkip);
+          for (int b = 0; b < BN / 64; ++b)
+            tma_load(smem_addr(skip_tile) + b * P::BM * 128, &maps.skip,
+                     n0 + 64 * b, m0, skip_bar, 1);
+        }
+      };
+      produce<P>(&maps.x, &maps.w, C, ks, steps, t, cells, h0, w0, b0, n0,
+                 ring, full0, empty0, rank, csize, skip);
+      if constexpr (P::SKIP == kProjection)
+        produce<P>(&maps.rx, &maps.rw, N, 1, rsteps, t, cells, h0, w0, b0,
+                   n0, ring, full0, empty0, rank, csize, [] {});
+    }
+    __syncwarp();
+  } else {
+    const int wg = tid / 128;
+    const int lane = tid & 31;
+    // The epilogue's parameters of this thread's filters (tid, tid +
+    // kConsumers), loaded now and folded after the K loop, so that their
+    // latency overlaps it: bias, gamma, beta, mean and var of the conv (and
+    // of the projection).
+    constexpr int kCols = (BN + P::kConsumers - 1) / P::kConsumers;
+    constexpr int kGroups = P::SKIP == kProjection ? 2 : 1;
+    float prm[kCols][kGroups][5];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int n = n0 + tid + c * P::kConsumers;
+      const bool real = tid + c * P::kConsumers < BN && n < N;
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        const BatchNormArgs& a = g == 0 ? bn : rbn;
+        prm[c][g][0] = real ? a.bias[n] : 0.0f;
+        prm[c][g][1] = real ? a.gamma[n] : 0.0f;
+        prm[c][g][2] = real ? a.beta[n] : 0.0f;
+        prm[c][g][3] = real ? a.mean[n] : 0.0f;
+        prm[c][g][4] = real ? a.var[n] : 1.0f;
+      }
+    }
+    float acc[P::kAcc];
+#pragma unroll
+    for (int i = 0; i < P::kAcc; ++i) acc[i] = 0.0f;
+    int t = 0;
+    consume<P>(steps, t, ring, full0, empty0, csize, wg, lane, acc);
+    float racc[P::SKIP == kProjection ? P::kAcc : 1];
+    if constexpr (P::SKIP == kProjection) {
+#pragma unroll
+      for (int i = 0; i < P::kAcc; ++i) racc[i] = 0.0f;
+      consume<P>(rsteps, t, ring, full0, empty0, csize, wg, lane, racc);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    if constexpr (P::SKIP == kProjection) fence_acc(racc);
+    if (lane < static_cast<int>(csize))
+      mbar_arrive_at(empty0 + 8 * ((t - 1) % S), lane);
+    // Each filter's scale and offset (fold's arithmetic), zero past N.
+    float* folded[2][2] = {{s_scale, s_offset}, {r_scale, r_offset}};
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int f = tid + c * P::kConsumers;
+      if (f < BN) {
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+          float sc = 0.0f, of = 0.0f;
+          if (g < kGroups) {
+            const float* q = prm[c][g < kGroups ? g : 0];
+            sc = q[1] / sqrtf(q[4] + eps);
+            of = (q[0] - q[3]) * sc + q[2];
+          }
+          folded[g][0][f] = sc;
+          folded[g][1][f] = of;
+        }
+      }
+    }
+    // Every consumer is past the ring and the scales are written: the ring
+    // stages the output.
+    asm volatile("bar.sync 1, %0;\n" ::"n"(P::kConsumers) : "memory");
+    if constexpr (P::SKIP == kIdentity) mbar_wait(skip_bar, 0);
+    bf16* staged = reinterpret_cast<bf16*>(ring_ptr);
+    const int row0 = (tid >> 5) * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int f = 8 * j + 2 * (lane & 3);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + 8 * half;
+        const int i = 4 * j + 2 * half;
+        float v0 = acc[i] * s_scale[f] + s_offset[f];
+        float v1 = acc[i + 1] * s_scale[f + 1] + s_offset[f + 1];
+        if constexpr (P::SKIP == kProjection) {
+          v0 += racc[i] * r_scale[f] + r_offset[f];
+          v1 += racc[i + 1] * r_scale[f + 1] + r_offset[f + 1];
+        }
+        if constexpr (P::SKIP == kIdentity) {
+          // Filter f of the row: box f / 64, 16-byte chunk (f % 64) / 8
+          // swizzled by the row.
+          const int cf = f & 63;
+          const float2 rv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  skip_tile + (f >> 6) * P::BM * 128 + row * 128 +
+                  (((cf >> 3) ^ (row & 7)) << 4) + (cf & 7) * 2));
+          v0 += rv.x;
+          v1 += rv.y;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(staged + row * P::kRow + f) =
+            __floats2bfloat162_rn(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
+      }
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(P::kConsumers) : "memory");
+    for (int e = tid; e < P::BM * BN / 8; e += P::kConsumers) {
+      const int row = e / (BN / 8);
+      const int col = n0 + (e % (BN / 8)) * 8;
+      if (m0 + row < M && col < N)
+        *reinterpret_cast<uint4*>(out + (long long)(m0 + row) * N + col) =
+            *reinterpret_cast<const uint4*>(staged + row * P::kRow + col -
+                                            n0);
+    }
+  }
+  // No CTA leaves while another may still arrive at its barriers.
+  cluster_sync();
+}
+
+// The driver's tensor-map encoders, through the runtime (no link to
+// libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+typedef CUresult (*EncodeIm2col)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const int*, const int*, cuuint32_t,
+                                 cuuint32_t, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+void* driver_function(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  cudaError_t err = cudaGetDriverEntryPointByVersion(
+      name, &p, 12000, cudaEnableDefault, &found);
+#else
+  cudaError_t err =
+      cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &found);
+#endif
+  return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? p
+                                                                     : nullptr;
+}
+
+// A row-major (rows x cols) bf16 matrix as a TMA map of 64-column boxes of
+// box_rows rows, 128-byte swizzled as wgmma reads them; boxes past the
+// matrix fill zeros.
+bool tiled_map(CUtensorMap* map, const bf16* a, int rows, int cols,
+               int box_rows) {
+  static const EncodeTiled encode =
+      reinterpret_cast<EncodeTiled>(driver_function("cuTensorMapEncodeTiled"));
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {kBK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<bf16*>(a), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// NHWC x ((B, H, W, C) bf16) as a TMA map in im2col mode for a ks x ks
+// "same" conv: columns of ``pixels`` cells in (b, h, w) order, 64 channels
+// each, 128-byte swizzled; a cell's receptive field starts at (w - pad,
+// h - pad), and every (w, h) a tap reads off the board fills zeros.
+bool im2col_map(CUtensorMap* map, const bf16* x, int B, int H, int W, int C,
+                int ks, int pixels) {
+  static const EncodeIm2col encode = reinterpret_cast<EncodeIm2col>(
+      driver_function("cuTensorMapEncodeIm2col"));
+  if (encode == nullptr) return false;
+  const int pad = ks / 2;
+  const cuuint64_t dims[4] = {
+      static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
+      static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(C) * 2,
+                                 static_cast<cuuint64_t>(W) * C * 2,
+                                 static_cast<cuuint64_t>(H) * W * C * 2};
+  const int lower[2] = {-pad, -pad};
+  const int upper[2] = {pad - (ks - 1), pad - (ks - 1)};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<bf16*>(x), dims, strides, lower, upper, kBK,
+                static_cast<cuuint32_t>(pixels), unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <class P>
+cudaError_t launch_ws(const bf16* x, const bf16* w, int C, int ks,
+                      const BatchNormArgs& bn, const bf16* r, const bf16* wr,
+                      const BatchNormArgs& rbn, bf16* out, int M, int H, int W,
+                      int N, float eps, int cluster, cudaStream_t stream) {
+  auto kernel = conv_kernel_ws<P>;
+  static bool sized = false;
+  if (!sized) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+    if (err != cudaSuccess) return err;
+    sized = true;
+  }
+  const int B = M / (H * W);
+  Maps maps;
+  bool ok = tiled_map(&maps.w, w, N, ks * ks * C, P::BN / cluster) &&
+            im2col_map(&maps.x, x, B, H, W, C, ks, P::BM);
+  maps.rw = maps.rx = maps.skip = maps.w;
+  if (P::SKIP == kProjection)
+    ok = ok && tiled_map(&maps.rw, wr, N, N, P::BN / cluster) &&
+         im2col_map(&maps.rx, r, B, H, W, N, 1, P::BM);
+  if (P::SKIP == kIdentity) ok = ok && tiled_map(&maps.skip, r, M, N, P::BM);
+  if (!ok) return cudaErrorInvalidValue;
+  const int tiles = (M + P::BM - 1) / P::BM;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((tiles + cluster - 1) / cluster * cluster,
+                        (N + P::BN - 1) / P::BN);
+  config.blockDim = dim3(P::kThreads);
+  config.dynamicSmemBytes = P::kSmem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, kernel, maps, C, ks, bn, rbn, out, M, H,
+                            W, N, eps);
+}
+
+template <int WG, int BN>
+cudaError_t launch_ws_skip(const bf16* x, const bf16* w, int C, int ks,
+                           const BatchNormArgs& bn, const bf16* r,
+                           const bf16* wr, const BatchNormArgs& rbn,
+                           int residual, bf16* out, int M, int H, int W, int N,
+                           float eps, int cluster, cudaStream_t s) {
+  switch (residual) {
+    case kNoSkip:
+      return launch_ws<Pipe<WG, BN, kNoSkip>>(x, w, C, ks, bn, r, wr, rbn, out,
+                                              M, H, W, N, eps, cluster, s);
+    case kProjection:  // the second accumulator: two warpgroups, 128 filters
+      if constexpr (BN == 128 && WG == 2)
+        return launch_ws<Pipe<WG, BN, kProjection>>(
+            x, w, C, ks, bn, r, wr, rbn, out, M, H, W, N, eps, cluster, s);
+      break;
+    case kIdentity:
+      return launch_ws<Pipe<WG, BN, kIdentity>>(x, w, C, ks, bn, r, wr, rbn,
+                                                out, M, H, W, N, eps, cluster,
+                                                s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 // pack: table rows (weight address, offset in out, C_out, C_in, taps) of
 // int64. Each layer's (C_out, C_in, taps) float32 weight becomes C_out rows
 // of padded_depth(C_in x taps) bf16 in (tap, C_in) order, zeros after
@@ -643,6 +1280,42 @@ int fused_net_conv(const void* x, int x_float, const bf16* w, int C, int ks,
     else
       err = cudaErrorInvalidValue;
   }
+  return static_cast<int>(err);
+}
+
+// One trunk conv layer through the pipelined kernel: as fused_net_conv's
+// bf16 path, with C and N multiples of 64; bm x bn the tile (64 or 128
+// cells, 128 or 256 filters; 256 not with a projection), cluster the CTAs
+// (1, 2 or 4, along M) that share each weight box.
+int fused_net_conv_pipelined(
+    const bf16* x, const bf16* w, int C, int ks, const float* bias,
+    const float* gamma, const float* beta, const float* mean,
+    const float* var, const bf16* r, const bf16* wr, const float* rbias,
+    const float* rgamma, const float* rbeta, const float* rmean,
+    const float* rvar, int residual, bf16* out, int M, int H, int W, int N,
+    float eps, int bm, int bn, int cluster, void* stream) {
+  if (C % kBK != 0 || N % kBK != 0 || residual < kNoSkip ||
+      residual > kIdentity || (cluster != 1 && cluster != 2 && cluster != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BatchNormArgs bn_args{bias, gamma, beta, mean, var};
+  const BatchNormArgs rbn{rbias, rgamma, rbeta, rmean, rvar};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (bm == 64 && bn == 128)
+    err = launch_ws_skip<1, 128>(x, w, C, ks, bn_args, r, wr, rbn, residual,
+                                 out, M, H, W, N, eps, cluster, s);
+  else if (bm == 128 && bn == 128)
+    err = launch_ws_skip<2, 128>(x, w, C, ks, bn_args, r, wr, rbn, residual,
+                                 out, M, H, W, N, eps, cluster, s);
+  else if (bm == 64 && bn == 256)
+    err = launch_ws_skip<1, 256>(x, w, C, ks, bn_args, r, wr, rbn, residual,
+                                 out, M, H, W, N, eps, cluster, s);
+  else if (bm == 128 && bn == 256)
+    err = launch_ws_skip<2, 256>(x, w, C, ks, bn_args, r, wr, rbn, residual,
+                                 out, M, H, W, N, eps, cluster, s);
+  else if (bm == 192 && bn == 128)
+    err = launch_ws_skip<3, 128>(x, w, C, ks, bn_args, r, wr, rbn, residual,
+                                 out, M, H, W, N, eps, cluster, s);
   return static_cast<int>(err);
 }
 

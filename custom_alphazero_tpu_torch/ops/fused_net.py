@@ -11,19 +11,24 @@ use and bound through ctypes):
   live float32 parameters, to bf16 (as autocast rounds them) into one
   buffer of C_out rows of (tap, C_in), the GEMM's K-major N x K operand;
 - ``conv``: an implicit GEMM on NHWC activations. One GEMM row is one board
-  cell: M = B x H x W, N = filters, K = taps x C_in. Each K step gathers one
-  tap's channels of the shifted cells with masked loads at the board's
-  edges (no im2col tensor) and a masked channel tail. The stem reads the
-  float32 observations and rounds them to bf16 on load. The epilogue, in
+  cell: M = B x H x W, N = filters, K = taps x C_in. No im2col tensor is
+  written. A bf16 trunk conv whose C_in and filters are multiples of
+  K_STEP takes the pipelined kernel: a producer thread streams each K
+  step's shifted cells (TMA's im2col mode, zeros past the board's edges)
+  and weight box (multicast within a cluster of CTAs) into a ring of
+  shared-memory stages that consumer warpgroups read with wgmma, paced by
+  mbarriers; ``conv_plan`` picks its tile and cluster by the GEMM's shape
+  (``conv.pipelined_launches`` counts it). The stem, which reads the
+  float32 observations and rounds them to bf16 on load, and any other
+  shape take the kernel whose threads gather both operands with masked
+  loads (``conv_tile`` picks its 128- or 64-cell tiles). The epilogue, in
   float32 from the live parameters and running statistics, applies the
   conv bias and the BatchNorm as one scale and offset a channel and, in a
   residual block's second conv, adds the block's skip: its 1x1 projection
   (a second accumulator over the block input, its own BatchNorm) or, in a
   block without one (``residual_projection=False``), the block input's
   bf16 tile itself; then ReLU, and writes bf16: one rounding a layer, where
-  the module path rounds after the conv, the BatchNorm and the add. Its
-  tiles are 128 or 64 board cells, chosen by the GEMM's shape
-  (``conv_tile``);
+  the module path rounds after the conv, the BatchNorm and the add;
 - ``heads``: the policy conv (2 filters) and the value conv (1 filter) over
   the trunk's output with their BatchNorm and ReLU, written in float32.
 
@@ -38,7 +43,10 @@ parameters and running statistics where they live, so an in-place
 ``load_state_dict`` (``Learner.promote``) or a train step reaches the next
 forward, also one replayed from a captured CUDA graph. What the object keeps
 is the table of the conv weights' addresses that ``pack`` reads; it is
-rebuilt when an address changes.
+rebuilt when an address changes. The pipelined kernel's TMA descriptors
+(of the packed weights and the activations, whose addresses a captured
+graph keeps) are encoded at each launch and passed by value, so a graph
+replay does no host work.
 
 These kernels replace no TPU kernel: the JAX package leaves the net to XLA,
 which fuses each layer's BatchNorm, bias, add and ReLU into the convolution
@@ -51,7 +59,7 @@ and what the design does about it, is in the source's head comment.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -113,6 +121,77 @@ def conv_tile(m: int, n: int, sms: int) -> int:
     big = 2 * -(-tiles // sms)
     small = SMALL_TILE_COST * -(-2 * tiles // sms)
     return 64 if small < big else 128
+
+
+class ConvPlan(NamedTuple):
+    """A pipelined trunk conv's launch: tiles of ``bm`` board cells by
+    ``bn`` filters, in clusters of ``cluster`` CTAs along M that share each
+    weight box (csrc/fused_net.cu, ``conv_kernel_ws``)."""
+    bm: int
+    bn: int
+    cluster: int
+
+
+# The pipelined kernel's cost model on an H100 (PERF.md, section 6), fitted
+# to its measured times at the benchmark's and the arenas' shapes: a round
+# of CTAs (as many as the SMs hold at once) costs ROUND_US (the pipeline's
+# fill, the epilogue, the launch) plus UNIT_US[tile] for each million cell
+# x filter x K of an SM's tiles in it. Once both operands are TMA loads the
+# unit cost hardly depends on the tile's shape: the rounds decide.
+ROUND_US = 5.0
+UNIT_US = {(64, 128): 0.42, (128, 128): 0.38, (192, 128): 0.38,
+           (64, 256): 0.39, (128, 256): 0.38}
+
+
+def _resident(bm: int, bn: int) -> int:
+    """The CTAs an SM holds at once: two of the 64 x 128 tile (its ring
+    sized for it), else one."""
+    return 2 if (bm, bn) == (64, 128) else 1
+
+
+def conv_grid(plan: ConvPlan, m: int, n: int) -> Tuple[int, int]:
+    """The pipelined kernel's grid for an (m, n) output: M tiles rounded up
+    to whole clusters (a cluster's last CTAs may hold no cells), N tiles."""
+    tiles = -(-m // plan.bm)
+    return -(-tiles // plan.cluster) * plan.cluster, -(-n // plan.bn)
+
+
+def conv_plan(m: int, n: int, cin: int, taps: int, sms: int,
+              projection: bool = False) -> Optional[ConvPlan]:
+    """The pipelined kernel's launch for a bf16 trunk conv with an (m, n)
+    output and K = taps x ``cin`` on ``sms`` SMs, or None where it cannot
+    take the shape (C_in or N not a multiple of K_STEP: its K steps are one
+    tap's whole 64-channel slice) and the layer runs ``conv_tile``'s
+    kernel.
+
+    A conv with a projection's second accumulator takes 128 x 128 tiles
+    (two warpgroups: one alone on an SM ran it at half the rate). Else, of
+    the tiles (256 filters only where N has them), the one whose last round
+    of CTAs ends first by the cost model above. A tile whose weight box is
+    wider than its cells (bn > bm) reads more weight than activations a
+    step: it takes clusters of 4 that share each weight box (2% faster on
+    an H100); the others take none (a cluster waits for its slowest CTA:
+    2% slower). At c4-r5's self-play shape (43,008 x 128, K 1,152) 192 x 128
+    tiles take 2 rounds where 128 x 128 take 3; at the 19 x 256 net's B=256
+    (10,752 x 256, K 2,304) one round of 112 tiles of 192 x 128 keeps 112
+    SMs busy where 84 of 128 x 256 would keep 84."""
+    if cin % K_STEP or n % K_STEP:
+        return None
+    if projection:
+        return ConvPlan(128, 128, 1)
+    best = None
+    for (bm, bn), unit in UNIT_US.items():
+        if bn == 256 and n <= 128:
+            continue
+        plan = ConvPlan(bm, bn, 4 if bn > bm else 1)
+        gx, gy = conv_grid(plan, m, n)
+        resident = _resident(bm, bn)
+        rounds = -(-gx * gy // (sms * resident))
+        time = rounds * (ROUND_US + unit * resident * bm * bn * taps * cin
+                         / 1e6)
+        if best is None or time < best[0]:
+            best = (time, plan)
+    return best[1]
 
 
 def padded_depth(cin: int, taps: int) -> int:
@@ -220,10 +299,13 @@ def _lib():
         lib.fused_net_pack.argtypes = [ptr, i, i, ptr, ptr]
         lib.fused_net_conv.argtypes = ([ptr, i, ptr, i, i] + [ptr] * 12
                                        + [i, ptr, i, i, i, i, f, i, ptr])
+        lib.fused_net_conv_pipelined.argtypes = (
+            [ptr, ptr, i, i] + [ptr] * 12 + [i, ptr, i, i, i, i, f, i, i, i,
+                                             ptr])
         lib.fused_net_heads.argtypes = ([ptr, i, i] + [ptr] * 6 + [i]
                                         + [ptr] * 6 + [i, f, ptr, ptr, ptr])
         for fn in (lib.fused_net_pack, lib.fused_net_conv,
-                   lib.fused_net_heads):
+                   lib.fused_net_conv_pipelined, lib.fused_net_heads):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -276,7 +358,21 @@ def conv(x: torch.Tensor, w: torch.Tensor, block: ConvBlock, hw, out,
     ``w`` is the layer's packed weight (``pack_layout``). ``residual``, added
     before the ReLU: the block input ((M, N) bf16) of an identity block, or
     (block input, its packed 1x1 weight, the proj ConvBlock) of a block with
-    a projection."""
+    a projection. A bf16 layer takes the pipelined kernel where
+    ``conv_plan`` has a launch for its shape."""
+    plan = None
+    if x.dtype == torch.bfloat16:
+        k = block.conv.kernel_size[0]
+        plan = conv_plan(out.shape[0], block.conv.out_channels, x.shape[-1],
+                         k * k, _sm_count(out.device),
+                         projection=isinstance(residual, tuple))
+    launch_conv(x, w, block, hw, out, residual, plan)
+
+
+def launch_conv(x, w, block: ConvBlock, hw, out, residual,
+                plan: Optional[ConvPlan]) -> None:
+    """``conv``'s launch with the pipelined kernel's ``plan``, or with
+    ``conv_tile``'s kernel where ``plan`` is None."""
     h, w_ = hw
     cin = x.shape[-1]
     n = block.conv.out_channels
@@ -289,13 +385,19 @@ def conv(x: torch.Tensor, w: torch.Tensor, block: ConvBlock, hw, out,
     else:
         r, wr, rblock = residual
         rbn, skip = _bn_args(rblock), 1
-    tile = (64 if x.dtype == torch.float32
-            else conv_tile(m, n, _sm_count(out.device)))
-    _launched("conv", _lib().fused_net_conv(
-        x.data_ptr(), int(x.dtype == torch.float32), w.data_ptr(), cin,
-        block.conv.kernel_size[0], *bn, r.data_ptr(), wr.data_ptr(), *rbn,
-        skip, out.data_ptr(), m, h, w_, n, block.bn.eps, tile,
-        _stream(out.device)))
+    head = (x.data_ptr(), w.data_ptr(), cin, block.conv.kernel_size[0], *bn,
+            r.data_ptr(), wr.data_ptr(), *rbn, skip, out.data_ptr(), m, h,
+            w_, n, block.bn.eps)
+    if plan is None:
+        tile = (64 if x.dtype == torch.float32
+                else conv_tile(m, n, _sm_count(out.device)))
+        _launched("conv", _lib().fused_net_conv(
+            head[0], int(x.dtype == torch.float32), *head[1:], tile,
+            _stream(out.device)))
+    else:
+        _launched("conv", _lib().fused_net_conv_pipelined(
+            *head, plan.bm, plan.bn, plan.cluster, _stream(out.device)))
+        conv.pipelined_launches += 1
     conv.launches += 1
     conv.identity_launches += int(skip == 2)
 
@@ -315,10 +417,12 @@ def heads(x: torch.Tensor, net: PolicyValueNet, p_out, v_out) -> None:
 
 # Launches made from the host. A launch recorded into a CUDA graph counts
 # once, when recorded; its replays are not counted. ``identity_launches``:
-# the conv launches that added an identity block's input.
+# the conv launches that added an identity block's input;
+# ``pipelined_launches``: those that took the pipelined kernel.
 pack.launches = 0
 conv.launches = 0
 conv.identity_launches = 0
+conv.pipelined_launches = 0
 heads.launches = 0
 
 

@@ -497,3 +497,36 @@ def test_search_tree_on_card_matches_cpu():
     states = chip_smoke.random_positions(env, 32, 20, gen, device)
     searched, _ = chip_smoke.reuse_card_vs_cpu(env, states, 48, 4, gen)
     assert searched == 4
+
+
+# (batch, filters, skip, plan or None for ``conv_plan``'s): c4-r5's
+# projection block at self-play's B=1,024; a 19 x 256 identity block at
+# B=256; a ragged M (5 boards, 210 cells: the second 128-cell tile holds 82);
+# a cluster of 4 whose last two CTAs hold no cells (3 boards, 126 cells in
+# 64-cell tiles).
+PIPELINED_CASES = {
+    "c4r5 projection": (1024, 128, "projection", None),
+    "az19x256 identity": (256, 256, "identity", None),
+    "ragged M": (5, 128, "none", None),
+    "empty cluster CTAs": (3, 256, "identity", (64, 256, 4)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PIPELINED_CASES))
+def test_pipelined_conv_matches_plain_and_present_kernel(case):
+    """One trunk conv layer through the pipelined kernel against the plain
+    layer and conv_tile's kernel, within phase 26's bound of a layer
+    (``FUSED_LAYER_STEPS`` bf16 steps of its magnitude), one pipelined
+    launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from custom_alphazero_tpu_torch.ops import fused_net
+
+    bsz, filters, skip, plan = PIPELINED_CASES[case]
+    got = chip_smoke.pipelined_conv_check(
+        torch.device("cuda"), bsz, filters, skip,
+        None if plan is None else fused_net.ConvPlan(*plan))
+    assert got["pipelined_launches"] == 1
+    assert got["steps_plain"] <= chip_smoke.FUSED_LAYER_STEPS
+    assert got["steps_present"] <= chip_smoke.FUSED_LAYER_STEPS

@@ -278,7 +278,25 @@ class _StandIns:
         # The tile the kernel would run: the stem's 64 cells, else the
         # shape's (``conv_tile`` on an H100's 132 SMs).
         assert bm == (64 if x_float else fused_net.conv_tile(M, N, 132))
+        self._conv(x, x_float, w, C, ks, bn, r, wr, rbn, residual, out, M, H,
+                   W, N, eps)
+        return 0
 
+    def fused_net_conv_pipelined(self, x, w, C, ks, *args):
+        bn, (r, wr), rbn = args[:5], args[5:7], args[7:12]
+        residual, out, M, H, W, N, eps, bm, bn_, cluster, stream = args[12:]
+        plan = (bm, bn_, cluster)
+        self.calls.append(("conv_pipelined", C, ks, residual, plan))
+        # The launch ``conv_plan`` gives the shape on an H100's 132 SMs.
+        assert plan == tuple(fused_net.conv_plan(
+            M, N, C, ks * ks, 132, projection=residual == 1))
+        self._conv(x, 0, w, C, ks, bn, r, wr, rbn, residual, out, M, H, W, N,
+                   eps)
+        return 0
+
+    @staticmethod
+    def _conv(x, x_float, w, C, ks, bn, r, wr, rbn, residual, out, M, H, W,
+              N, eps):
         def sums(inp, width, packed, k):
             nchw = inp.view(-1, H, W, width).permute(0, 3, 1, 2)
             rows = _at(packed, (N, fused_net.padded_depth(width, k * k)),
@@ -296,7 +314,6 @@ class _StandIns:
         elif residual == 2:
             y = y + _at(r, (M, N), torch.bfloat16).float()
         _at(out, (M, N), torch.bfloat16).copy_(torch.relu(y))
-        return 0
 
     def fused_net_heads(self, x, M, C, wp, *args):
         pbn, P, wv, vbn, V = args[:5], args[5], args[6], args[7:12], args[12]
@@ -493,3 +510,82 @@ def test_conv_tile_by_shape():
     assert fused_net.conv_tile(512 * 42, 256, 132) == 128
     assert fused_net.conv_tile(1024 * 42, 256, 132) == 64
     assert fused_net.conv_tile(128 * 64, 128, 132) == 64
+
+
+# ---------------------------------------------------------------------------
+# The pipelined conv's launches (filters a multiple of K_STEP)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("projection", [True, False])
+def test_launch_sequence_and_counters_pipelined(stand_ins, projection):
+    """A net of 64 filters: the stem on conv_tile's kernel, every block
+    conv through the pipelined kernel with ``conv_plan``'s launch (the
+    stand-in holds each to it), counted by ``conv.pipelined_launches``; the
+    result is the plain version's."""
+    depth = 2
+    cfg = ModelConfig(depth=depth, filters=64, value_hidden=32,
+                      residual_projection=projection)
+    net = PolicyValueNet(7, cfg, 4, (6, 7))
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for t in net.parameters():
+            t.copy_(torch.randn(t.shape, generator=gen)
+                    / max(t[0].numel(), 1) ** 0.5)
+    net.eval()
+    obs = _obs("c4", 5)
+    counts = (fused_net.conv.launches, fused_net.conv.pipelined_launches)
+    with torch.inference_mode():
+        got = fused_net.FusedForward(net)._forward_cuda(obs)
+        want = fused_net.forward_plain(net, obs)
+    assert (fused_net.conv.launches - counts[0],
+            fused_net.conv.pipelined_launches - counts[1]) == (
+                1 + 2 * depth, 2 * depth)
+    m = 5 * 42
+    plan = tuple(fused_net.conv_plan(m, 64, 64, 9, 132))
+    skip_plan = tuple(fused_net.conv_plan(m, 64, 64, 9, 132,
+                                          projection=projection))
+    assert stand_ins.calls[1:-1] == (
+        [("conv", 1, 4, 3, 0)]
+        + [call for _ in range(depth) for call in (
+            ("conv_pipelined", 64, 3, 0, plan),
+            ("conv_pipelined", 64, 3, 1 if projection else 2, skip_plan))])
+    assert _gap(got, want) < 1e-2
+
+
+# (label, M, N, C_in, taps, projection, expected plan): the benchmark's
+# self-play shapes, the arenas' and serving's batches, a 19 x 256 net at
+# B=1,024 (clusters of 4) and shapes that fall back to conv_tile's kernel.
+PLAN_CASES = [
+    ("c4-r5 self-play", 1024 * 42, 128, 128, 9, False, (192, 128, 1)),
+    ("c4-r5 self-play, projection", 1024 * 42, 128, 128, 9, True,
+     (128, 128, 1)),
+    ("c4az self-play", 256 * 42, 256, 256, 9, False, (192, 128, 1)),
+    ("c4-r5 arena", 256 * 42, 128, 128, 9, False, (128, 128, 1)),
+    ("c4-r5 serving batch", 16 * 42, 128, 128, 9, True, (128, 128, 1)),
+    ("19 x 256 at B=1024", 1024 * 42, 256, 256, 9, False, (128, 256, 4)),
+    ("19 x 256, 3 boards", 3 * 42, 256, 256, 9, False, (128, 128, 1)),
+    ("16 filters", 64 * 42, 16, 16, 9, False, None),
+    ("96 filters", 64 * 42, 96, 96, 9, False, None),
+]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
+def test_conv_plan_by_shape(case):
+    """The pipelined kernel's tile and cluster by shape, and its grid: every
+    output cell x filter in exactly one CTA's tile, and CTAs without cells
+    only to complete the last cluster."""
+    _, m, n, cin, taps, projection, want = case
+    plan = fused_net.conv_plan(m, n, cin, taps, 132, projection=projection)
+    assert (None if plan is None else tuple(plan)) == want
+    if plan is None:
+        return
+    gx, gy = fused_net.conv_grid(plan, m, n)
+    covered = np.zeros((gx * plan.bm, gy * plan.bn), dtype=np.int8)
+    for bx in range(gx):
+        for by in range(gy):
+            covered[bx * plan.bm:(bx + 1) * plan.bm,
+                    by * plan.bn:(by + 1) * plan.bn] += 1
+    assert (covered[:m, :n] == 1).all()
+    empty = gx - -(-m // plan.bm)
+    assert gx % plan.cluster == 0 and 0 <= empty < plan.cluster
