@@ -190,27 +190,25 @@ Phases (any failed check raises and exits non-zero):
     search graph gives a fresh capture's results, on the fused and the
     module path; the forward's device time beside its bound, the plain
     version's and the module path's (cuDNN), and each kernel's, at c4-r5's
-    B=1,024 and the 19 x 256 net's B=256; each trunk conv of those two
-    shapes through the pipelined kernel and conv_tile's (``conv_times``:
-    us a launch, the bound, the plain layer, cuDNN's conv alone). The
-    kernels' line reports the fused net's launches counted from zero over
-    main-path runs: phase 11's arena, phase 12's ``run()`` and this phase's
-    captured searches (c4-r5 and 19 x 256), each held to its forwards
-    (``FusedNetCount``, the block convs through the pipelined kernel).
+    B=1,024 and the 19 x 256 net's B=256; each block conv of those two
+    shapes through the pipelined kernel (``conv_times``: us a launch, the
+    bound, the plain layer, cuDNN's conv alone). The kernels' line reports
+    the fused net's launches counted from zero over main-path runs: phase
+    11's arena, phase 12's ``run()`` and this phase's captured searches
+    (c4-r5 and 19 x 256), each held to its forwards (``FusedNetCount``).
 27. The kernels' JSON line, the card's line, and the result line.
 
 ``python3 chip_smoke.py --launch-shapes`` runs a tuning aid in place of the
 phases: K1 built with 1, 2, 4 and 8 games (warps) per block, each checked
 and timed as in phase 3. ``python3 chip_smoke.py --conv-plans`` runs
-another: every tile and cluster size of the pipelined conv at the trunk
-shapes of the benchmark's cells and the arenas, each checked and timed
-beside conv_tile's kernel (``fused_net.conv_plan``'s cost model was fitted
-to it). ``python3 chip_smoke.py --fused-net`` runs phase 26 alone.
+another: both tiles of the pipelined conv at the block conv shapes of the
+benchmark's cells and the arenas, each checked and timed
+(``fused_net.conv_plan``'s cost model was fitted to it). ``python3
+chip_smoke.py --fused-net`` runs phase 26 alone.
 """
 
 from __future__ import annotations
 
-import itertools
 import json
 import math
 import os
@@ -949,10 +947,8 @@ class FusedNetCount:
     it sent to the module path on CUDA and the plain version's calls.
     ``check(name, depth, identity)`` holds the counters to the forwards:
     one pack, 1 + 2 x depth convs (``identity`` of them adding an identity
-    block's input; the 2 x depth block convs through the pipelined kernel,
-    the stem through conv_tile's: every net counted here has a multiple of
-    64 filters) and one heads launch each, no module-path evaluation on the
-    card, no plain forward."""
+    block's input) and one heads launch each, no module-path evaluation on
+    the card, no plain forward."""
 
     def __enter__(self):
         from custom_alphazero_tpu_torch.ops import fused_net
@@ -961,7 +957,6 @@ class FusedNetCount:
         fused_net.pack.launches = 0
         fused_net.conv.launches = 0
         fused_net.conv.identity_launches = 0
-        fused_net.conv.pipelined_launches = 0
         fused_net.heads.launches = 0
         self.recorded = self.eager = self.module = 0
         self.plain = fused_net.forward_plain.calls
@@ -996,14 +991,12 @@ class FusedNetCount:
         forwards = self.recorded + self.eager
         counts = {"pack": fn.pack.launches, "conv": fn.conv.launches,
                   "conv_identity": fn.conv.identity_launches,
-                  "conv_pipelined": fn.conv.pipelined_launches,
                   "heads": fn.heads.launches,
                   "forwards_recorded": self.recorded,
                   "forwards_eager": self.eager}
         check(counts["pack"] == forwards == counts["heads"]
               and counts["conv"] == (1 + 2 * depth) * forwards
-              and counts["conv_identity"] == identity * forwards
-              and counts["conv_pipelined"] == 2 * depth * forwards,
+              and counts["conv_identity"] == identity * forwards,
               f"{name}: fused net launches {counts} do not match its "
               f"forwards")
         check(self.module == 0, f"{name}: {self.module} evaluations took "
@@ -3384,35 +3377,21 @@ def bf16_steps(got, want) -> float:
     return (got.float() - want.float()).abs().max().item() / scale
 
 
-def pipelined_conv_check(device, bsz: int, filters: int, skip: str,
-                         plan=None) -> dict:
-    """One conv layer (``conv_layer_case``) through the pipelined kernel
-    with ``plan`` (``conv_plan``'s where None) and through conv_tile's:
-    the pipelined output's gap from the plain layer and from the other
-    kernel in bf16 steps, whether the two kernels agree bit for bit, and the
-    pipelined launches counted."""
+def pipelined_conv_check(device, bsz: int, filters: int, skip: str) -> dict:
+    """One block conv layer (``conv_layer_case``) through ``fused_net.conv``
+    (the pipelined kernel on ``conv_plan``'s tile): its gap from the plain
+    layer in bf16 steps and the conv launches counted."""
     from custom_alphazero_tpu_torch.ops import fused_net
 
     x, packed, block, residual, want, _ = conv_layer_case(device, bsz,
                                                           filters, skip)
-    m = x.shape[0]
-    if plan is None:
-        plan = fused_net.conv_plan(m, filters, filters, 9,
-                                   fused_net._sm_count(device),
-                                   projection=skip == "projection")
-    got = torch.empty(m, filters, dtype=torch.bfloat16, device=device)
-    present = torch.empty_like(got)
+    got = torch.empty_like(want)
     with torch.inference_mode():
-        fused_net.launch_conv(x, packed, block, (6, 7), present, residual,
-                              None)
-        launches = fused_net.conv.pipelined_launches
-        fused_net.launch_conv(x, packed, block, (6, 7), got, residual, plan)
-        launches = fused_net.conv.pipelined_launches - launches
+        launches = fused_net.conv.launches
+        fused_net.conv(x, packed, block, (6, 7), got, residual)
+        launches = fused_net.conv.launches - launches
         torch.cuda.synchronize()
-    return {"plan": tuple(plan), "steps_plain": bf16_steps(got, want),
-            "steps_present": bf16_steps(got, present),
-            "bit_equal": torch.equal(got, present),
-            "pipelined_launches": launches}
+    return {"steps_plain": bf16_steps(got, want), "launches": launches}
 
 
 def time_launches(fn, repeats: int = 20) -> float:
@@ -3441,9 +3420,9 @@ CONV_SHAPES = (("c4-r5 B=1024", 1024, 128, "none"),
 
 
 def conv_plans(device) -> None:
-    """A tuning aid for ``fused_net.conv_plan``: at each of CONV_SHAPES,
-    conv_tile's kernel and the pipelined kernel with every tile and cluster
-    size, each checked against the plain layer, and their device times."""
+    """A tuning aid for ``fused_net.conv_plan``: at each of CONV_SHAPES, the
+    pipelined kernel on each tile (128 cells only with a projection),
+    checked against the plain layer, and their device times."""
     from custom_alphazero_tpu_torch.ops import fused_net
 
     sms = fused_net._sm_count(device)
@@ -3456,39 +3435,24 @@ def conv_plans(device) -> None:
                                      projection=skip == "projection")
         flops = 2 * m * filters * 9 * filters * (
             1 + (skip == "projection") / 9)
+        log(f"conv plans, {label} {skip}: conv_plan picks {chosen} cells")
         with torch.inference_mode():
-            def run(plan):
-                return lambda: fused_net.launch_conv(
-                    x, packed, block, (6, 7), out, residual, plan)
-            base_ms = time_launches(run(None))
-            present = out.clone()
-            log(f"conv plans, {label} {skip}: conv_tile's kernel "
-                f"{base_ms * 1e3:.1f} us ({flops / base_ms / 1e9 / 989:.1%} "
-                f"of the bf16 peak); conv_plan picks {tuple(chosen)}")
-            for (bm, bn), cluster in itertools.product(fused_net.UNIT_US,
-                                                       (1, 2, 4)):
-                if (bn == 256 and filters <= 128
-                        or skip == "projection" and (bm, bn) != (128, 128)):
+            for bm in fused_net.UNIT_US:
+                if skip == "projection" and bm != 128:
                     continue
-                plan = fused_net.ConvPlan(bm, bn, cluster)
-                try:
-                    ms = time_launches(run(plan))
-                except RuntimeError as err:
-                    log(f"  {tuple(plan)}: {err}")
-                    continue
-                log(f"  {tuple(plan)}: {ms * 1e3:.1f} us "
+                ms = time_launches(lambda: fused_net.launch_conv(
+                    x, packed, block, (6, 7), out, residual, bm))
+                log(f"  {bm} x {fused_net.TILE_FILTERS}: {ms * 1e3:.1f} us "
                     f"({flops / ms / 1e9 / 989:.1%}), "
-                    f"{bf16_steps(out, want):.2f} steps from plain, bit-equal"
-                    f" to conv_tile's: {torch.equal(out, present)}")
+                    f"{bf16_steps(out, want):.2f} steps from plain")
 
 
 def conv_times(device) -> dict:
-    """Each trunk conv of the benchmark's self-play paths (c4-r5 at
+    """Each block conv of the benchmark's self-play paths (c4-r5 at
     B=1,024, the 19 x 256 net at B=256) on the card: the pipelined kernel
-    with ``conv_plan``'s launch and conv_tile's kernel (both checked against
-    the plain layer, and whether they agree bit for bit), the bound (the
-    conv's FLOPs at the bf16 peak), the plain layer (TF32 off) and cuDNN's
-    bf16 conv alone (the library yardstick): us a launch."""
+    on ``conv_plan``'s tile (checked against the plain layer), the bound
+    (the conv's FLOPs at the bf16 peak), the plain layer (TF32 off) and
+    cuDNN's bf16 conv alone (the library yardstick): us a launch."""
     import torch.nn.functional as F
 
     from custom_alphazero_tpu_torch.ops import fused_net
@@ -3500,16 +3464,13 @@ def conv_times(device) -> dict:
         x, packed, block, residual, want, plain = conv_layer_case(
             device, bsz, filters, skip)
         m = x.shape[0]
-        plan = fused_net.conv_plan(m, filters, filters, 9, sms,
+        tile = fused_net.conv_plan(m, filters, filters, 9, sms,
                                    projection=skip == "projection")
         flops = 2 * m * filters * filters * (9 + (skip == "projection"))
         out = torch.empty_like(want)
         with torch.inference_mode():
-            pipelined_us = 1e3 * time_launches(lambda: fused_net.launch_conv(
-                x, packed, block, (6, 7), out, residual, plan))
-            got = out.clone()
-            present_us = 1e3 * time_launches(lambda: fused_net.launch_conv(
-                x, packed, block, (6, 7), out, residual, None))
+            pipelined_us = 1e3 * time_launches(lambda: fused_net.conv(
+                x, packed, block, (6, 7), out, residual))
             torch.backends.cudnn.allow_tf32 = False
             plain_us = 1e3 * time_launches(plain, 5)
             torch.backends.cudnn.allow_tf32 = True
@@ -3519,20 +3480,17 @@ def conv_times(device) -> dict:
                 lambda: F.conv2d(nchw, weight, None, padding=1))
         name = f"{label} {skip}"
         times[name] = {
-            "plan": tuple(plan), "pipelined_us": pipelined_us,
-            "present_us": present_us, "bound_us": flops / 989e6,
-            "plain_us": plain_us, "library_us": library_us,
-            "steps_plain": bf16_steps(got, want),
-            "bit_equal_present": torch.equal(got, out)}
+            "tile": tile, "pipelined_us": pipelined_us,
+            "bound_us": flops / 989e6, "plain_us": plain_us,
+            "library_us": library_us, "steps_plain": bf16_steps(out, want)}
         check(times[name]["steps_plain"] <= FUSED_LAYER_STEPS,
               f"{name}: the pipelined conv is "
               f"{times[name]['steps_plain']:.2f} bf16 steps from plain")
-        log(f"fused net conv, {name}: pipelined {tuple(plan)} "
-            f"{pipelined_us:.1f} us ({flops / pipelined_us / 989e6:.1%} of "
-            f"the bf16 peak), conv_tile's kernel {present_us:.1f} us, bound "
+        log(f"fused net conv, {name}: pipelined {tile} x "
+            f"{fused_net.TILE_FILTERS} {pipelined_us:.1f} us "
+            f"({flops / pipelined_us / 989e6:.1%} of the bf16 peak), bound "
             f"{flops / 989e6:.1f} us, plain layer {plain_us:.1f} us, cuDNN "
-            f"bf16 conv alone {library_us:.1f} us; bit-equal to conv_tile's:"
-            f" {times[name]['bit_equal_present']}")
+            f"bf16 conv alone {library_us:.1f} us")
     return times
 
 

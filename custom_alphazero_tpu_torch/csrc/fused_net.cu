@@ -9,37 +9,33 @@
 //   through a table of addresses and rounded to bf16 (as autocast rounds
 //   it), into one buffer: C_out rows of (tap, C_in), zero-padded to whole K
 //   steps, the GEMM's K-major N x K operand. One launch a forward.
-// - conv_kernel_ws: a trunk conv with bf16 input whose C_in and filters are
-//   multiples of 64 (every block conv of the port's nets). An implicit GEMM
-//   on NHWC activations: one GEMM row is one board cell, M = B x H x W,
-//   N = filters, K = taps x C_in, each K step one tap's 64 channels.
-//   Warp-specialised: one producer thread keeps a ring of shared-memory
-//   stages full by TMA, each stage with a full and an empty mbarrier. A
-//   step's A tile is loaded in TMA's im2col mode (the tap is the im2col
-//   offset; cells past the board's edges and the batch read the
+// - conv_kernel_ws: a block conv, bf16 input with C_in and filters
+//   multiples of 64 (every block conv of a net the fused forward takes). An
+//   implicit GEMM on NHWC activations: one GEMM row is one board cell,
+//   M = B x H x W, N = filters, K = taps x C_in, each K step one tap's 64
+//   channels. Warp-specialised: one producer thread keeps a ring of
+//   shared-memory stages full by TMA, each stage with a full and an empty
+//   mbarrier. A step's A tile is loaded in TMA's im2col mode (the tap is
+//   the im2col offset; cells past the board's edges and the batch read the
 //   out-of-bounds zeros: no im2col tensor, no thread computes an address or
-//   a mask); its B tile is a box of the packed weight, split between the
-//   CTAs of a cluster along M (same filters) and multicast to all of them.
-//   Consumer warpgroups wait on a stage's full barrier, issue wgmma
-//   (m64n128k16 or m64n256k16, both operands 128-byte swizzled, float32
-//   sums in the same K order as conv_kernel's), keep one group in flight
-//   and release the stage on the empty barrier of every CTA of the cluster:
-//   no block-wide barrier in the K loop. A 1x1 projection's K loop runs
+//   a mask); its B tile is a box of the packed weight. Consumer warpgroups
+//   wait on a stage's full barrier, issue wgmma (m64n128k16, both operands
+//   128-byte swizzled, float32 sums in the packed weight's K order), keep
+//   one group in flight and release the stage on its empty barrier: no
+//   block-wide barrier in the K loop. A 1x1 projection's K loop runs
 //   through the same ring into a second accumulator; an identity skip's
 //   bf16 tile is loaded by TMA while the K loop runs. The epilogue, in
 //   float32 from the live parameters and running statistics, applies the
 //   conv's bias and eval-mode BatchNorm as one scale and offset a channel,
 //   adds the skip, applies ReLU and writes bf16 (one rounding a layer)
 //   through shared memory in 16-byte chunks. ops/fused_net.py's
-//   ``conv_plan`` picks the tile (64, 128 or 192 cells by 128 or 256
-//   filters) and the cluster (1 or 4 CTAs) from the GEMM's shape.
+//   ``conv_plan`` picks the tile, 128 or 192 cells by 128 filters, from the
+//   GEMM's shape.
 // - conv_kernel: the stem, which reads the float32 observations over the
-//   flat K = taps x C_in and rounds them to bf16 on load, and any bf16
-//   trunk conv conv_kernel_ws does not take (C_in and filters multiples of
-//   8, not both of 64): every
-//   thread gathers both operands with masked cp.async and the block meets
-//   at a barrier each K step; the same epilogue (the identity skip read
-//   after the K loop).
+//   flat K = taps x C_in and rounds them to bf16 on load: every thread
+//   gathers a run of K of one cell and a share of the weight (masked
+//   cp.async), and the block meets at a barrier each K step; the same
+//   epilogue, without a skip.
 // - heads: the policy and value 1x1 convs (a few filters each) over the
 //   trunk's bf16 output, one thread a board cell, with their BatchNorm and
 //   ReLU, written in float32 for the dense layers.
@@ -48,16 +44,13 @@
 // 0.109 ms at the bf16 peak, against about 0.074 ms of its bytes read and
 // written once; the tensor cores bound it. Every layer is one launch with
 // its whole epilogue in registers, so an activation is written once, in
-// bf16, and read only by the next layer. conv_kernel stayed below a third
-// of the peak feeding wgmma: its threads computed every gather's address and
-// mask and the block met at a barrier each step. With both operands loaded
-// by TMA, builds without the A or without the B loads ran no faster at the
+// bf16, and read only by the next layer. A block conv whose threads compute
+// every gather's address and mask, meeting at a barrier each step, stayed
+// below a third of the peak feeding wgmma. With both operands loaded by
+// TMA, builds without the A or without the B loads ran no faster at the
 // 19 x 256 shape: what keeps conv_kernel_ws at 40-50% of the peak is each
 // CTA's fixed cost (the pipeline's fill, the epilogue, about 5 us a round
-// of CTAs) and the last round of tiles, which ``conv_plan`` weighs. The
-// weight multicast pays 2% only where a tile's weight box is wider than
-// its cells. The barriers take the CTA-scope defaults: cluster-scope
-// release and acquire cost a K step a microsecond.
+// of CTAs) and the last round of tiles, which ``conv_plan`` weighs.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -68,27 +61,12 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-// A conv tile: BM = 64 x WG board cells x kBN filters, one warpgroup (four
-// warps of 16 cells) per 64 cells, all sharing the tile's weight; K stages
-// of kBK = one 128-byte row of bf16, in a ring of STAGES in shared memory.
-// Both operands are K-major and 128-byte swizzled, the layout wgmma reads
-// through its descriptors: 16-byte chunk j of row r sits at chunk
-// j ^ (r % 8) of the row.
+// Both conv kernels' tiles are kBN filters wide, their K stages kBK = one
+// 128-byte row of bf16. Both operands are K-major and 128-byte swizzled,
+// the layout wgmma reads through its descriptors: 16-byte chunk j of row r
+// sits at chunk j ^ (r % 8) of the row.
 constexpr int kBN = 128;
 constexpr int kBK = 64;
-constexpr int kFold = 4 * kBN * 4;  // epilogue scales and offsets, bytes
-
-template <int WG_, int STAGES_>
-struct Tiles {
-  static constexpr int WG = WG_;
-  static constexpr int BM = 64 * WG;
-  static constexpr int kStages = STAGES_;
-  static constexpr int kThreads = 128 * WG;
-  static constexpr int kATile = BM * kBK * 2;  // bytes
-  static constexpr int kBTile = kBN * kBK * 2;
-  static constexpr int kStage = kATile + kBTile;  // a multiple of 1024
-  static constexpr int kSmem = kFold + kStages * kStage;
-};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -99,13 +77,6 @@ __device__ __forceinline__ int swizzled(int row, int chunk) {
 }
 
 // 16 bytes from global to shared memory; zeros where !ok (nothing read).
-__device__ __forceinline__ void cp_async_ca(uint32_t dst, const void* src,
-                                            bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
 __device__ __forceinline__ void cp_async_cg(uint32_t dst, const void* src,
                                             bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
@@ -198,129 +169,112 @@ __device__ __forceinline__ void fold(const BatchNormArgs& bn, int c, float eps,
   *offset = (bn.bias[c] - bn.mean[c]) * s + bn.beta[c];
 }
 
-// A layer's GEMM operands: NHWC input x (B*H*W rows of C channels), packed
-// weight w (N rows of kp: taps x C in (tap, channel) order, zero-padded to
-// a multiple of kBK), the kernel size ks (odd, "same" padding).
-template <typename TIn>
-struct Operand {
-  const TIn* x;
+__host__ __device__ __forceinline__ int padded_depth(int depth) {
+  return (depth + kBK - 1) / kBK * kBK;
+}
+
+// How a block conv's output takes a residual block's skip path (the entry
+// point's ``residual``).
+enum Skip { kNoSkip = 0, kProjection = 1, kIdentity = 2 };
+
+// ---------------------------------------------------------------------------
+// The stem (conv_kernel): float32 observations x (B*H*W rows of C
+// channels), its packed weight w (N rows of padded_depth(taps x C) in (tap,
+// channel) order), the kernel size ks (odd, "same" padding).
+// ---------------------------------------------------------------------------
+
+// The stem's tile: 64 board cells (one warpgroup, four warps of 16 cells)
+// by kBN filters, one thread a filter in the epilogue; a ring of kStages K
+// stages in shared memory after the epilogue's scales and offsets.
+struct Stem {
+  static constexpr int BM = 64;
+  static constexpr int kThreads = 128;
+  static constexpr int kStages = 3;
+  static constexpr int kATile = BM * kBK * 2;  // bytes
+  static constexpr int kBTile = kBN * kBK * 2;
+  static constexpr int kStage = kATile + kBTile;  // a multiple of 1024
+  static constexpr int kFold = 2 * kBN * 4;       // a multiple of 1024
+  static constexpr int kSmem = kFold + kStages * kStage;
+  static_assert(kThreads == kBN, "one thread a filter of the tile");
+};
+
+struct StemInput {
+  const float* x;
   const bf16* w;
   int C;
   int ks;
 };
 
-__host__ __device__ __forceinline__ int padded_depth(int depth) {
-  return (depth + kBK - 1) / kBK * kBK;
-}
-
-// The K loop of one accumulator. FLAT (the stem): K runs over taps x C_in
-// as one flat index; each thread gathers a run of 32 consecutive K of one
-// row from float32 and rounds it to bf16. Otherwise (bf16 input with C_in a
-// multiple of 8): K steps are (tap, kBK channels), gathered 16 bytes at a
-// time with cp.async, zero-filled outside the board and the channels.
-template <class T, bool FLAT, typename TIn>
-__device__ __forceinline__ void k_loop(const Operand<TIn>& op, int M, int H,
-                                       int W, int N, int m0, int n0,
-                                       unsigned char* tiles, float (&acc)[64]) {
-  constexpr int kStages = T::kStages;
-  constexpr int kStage = T::kStage;
-  constexpr int kRun = T::BM * kBK / T::kThreads;  // FLAT: K a thread
+// The stem's K loop: K runs over taps x C_in as one flat index; each thread
+// gathers a run of kRun consecutive K of one cell from float32 and rounds
+// it to bf16 (the packed weight's padding is zeros).
+__device__ __forceinline__ void stem_k_loop(const StemInput& op, int M, int H,
+                                            int W, int N, int m0, int n0,
+                                            unsigned char* tiles,
+                                            float (&acc)[64]) {
+  constexpr int kStages = Stem::kStages;
+  constexpr int kStage = Stem::kStage;
+  constexpr int kRun = Stem::BM * kBK / Stem::kThreads;
   const int tid = threadIdx.x;
   const int C = op.C;
   const int ks = op.ks;
   const int pad = ks / 2;
-  const int hw = H * W;
-  const int kc = (C + kBK - 1) / kBK;  // K steps a tap (not FLAT)
   const int depth = ks * ks * C;
   const int kp = padded_depth(depth);
-  const int steps = FLAT ? kp / kBK : ks * ks * kc;
+  const int steps = kp / kBK;
   const uint32_t base = smem_addr(tiles);
 
-  // This thread's rows: FLAT, row tid / 2 and K run (tid % 2) * kRun;
-  // otherwise rows tid / 8 + 16 i, 16-byte chunk tid % 8 of each.
-  constexpr int kRows = FLAT ? 1 : T::BM * 8 / T::kThreads;
-  int a_m[kRows], a_h[kRows], a_w[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int m = m0 + (FLAT ? tid / 2 : tid / 8 + 16 * T::WG * i);
-    const int cell = m % hw;
-    a_m[i] = m;
-    a_h[i] = cell / W;
-    a_w[i] = cell % W;
-  }
+  // This thread's cell, row tid / 2 of the tile, and its K run, (tid % 2) *
+  // kRun of each step.
+  const int r = tid / 2;
+  const int kk = (tid % 2) * kRun;
+  const int a_m = m0 + r;
+  const int cell = a_m % (H * W);
+  const int a_h = cell / W;
+  const int a_w = cell % W;
 
   auto load = [&](int step, int stage) {
-    const uint32_t a_tile = base + stage * kStage;
-    const uint32_t b_tile = a_tile + T::kATile;
+    const uint32_t b_tile = base + stage * kStage + Stem::kATile;
     unsigned char* a_ptr = tiles + stage * kStage;
     const int chunk = tid % 8;
-    int k_col;  // the packed weight's first column of this step
-    bool k_ok;  // this thread's chunk of the weight holds real K
-    if constexpr (FLAT) {
-      const int r = tid / 2;
-      const int kk = (tid % 2) * kRun;
-      int k = step * kBK + kk;
-      int tap = k / C;
-      int c = k - tap * C;
-      int dh = tap / ks - pad, dw = tap % ks - pad;
-      // All the run's loads first, then the rounding: the loads are in
-      // flight together.
-      float v[kRun];
+    int k = step * kBK + kk;
+    int tap = k / C;
+    int c = k - tap * C;
+    int dh = tap / ks - pad, dw = tap % ks - pad;
+    // All the run's loads first, then the rounding: the loads are in
+    // flight together.
+    float v[kRun];
 #pragma unroll
-      for (int j = 0; j < kRun; ++j) {
-        const int hh = a_h[0] + dh;
-        const int ww = a_w[0] + dw;
-        const bool ok = a_m[0] < M && k < depth && hh >= 0 && hh < H &&
-                        ww >= 0 && ww < W;
-        v[j] = ok ? static_cast<float>(
-                        op.x[(long long)(a_m[0] + dh * W + dw) * C + c])
-                  : 0.0f;
-        ++k;
-        if (++c == C) {
-          c = 0;
-          ++tap;
-          dh = tap / ks - pad;
-          dw = tap % ks - pad;
-        }
+    for (int j = 0; j < kRun; ++j) {
+      const int hh = a_h + dh;
+      const int ww = a_w + dw;
+      const bool ok =
+          a_m < M && k < depth && hh >= 0 && hh < H && ww >= 0 && ww < W;
+      v[j] = ok ? op.x[(long long)(a_m + dh * W + dw) * C + c] : 0.0f;
+      ++k;
+      if (++c == C) {
+        c = 0;
+        ++tap;
+        dh = tap / ks - pad;
+        dw = tap % ks - pad;
       }
-      uint32_t packed[kRun / 2];
+    }
+    uint32_t packed[kRun / 2];
 #pragma unroll
-      for (int j = 0; j < kRun; j += 2) {
-        __nv_bfloat162 pair = __floats2bfloat162_rn(v[j], v[j + 1]);
-        packed[j / 2] = *reinterpret_cast<uint32_t*>(&pair);
-      }
-#pragma unroll
-      for (int j = 0; j < kRun / 8; ++j)
-        *reinterpret_cast<uint4*>(a_ptr + swizzled(r, kk / 8 + j)) =
-            make_uint4(packed[4 * j], packed[4 * j + 1], packed[4 * j + 2],
-                       packed[4 * j + 3]);
-      k_col = step * kBK;
-      k_ok = true;  // the padding of the packed weight is zeros
-    } else {
-      const int tap = step / kc;
-      const int c0 = (step - tap * kc) * kBK;
-      const int dh = tap / ks - pad;
-      const int dw = tap % ks - pad;
-      const bool c_ok = c0 + chunk * 8 < C;
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int r = tid / 8 + 16 * T::WG * i;
-        const int hh = a_h[i] + dh;
-        const int ww = a_w[i] + dw;
-        const bool ok = c_ok && a_m[i] < M && hh >= 0 && hh < H && ww >= 0 &&
-                        ww < W;
-        const TIn* src = ok ? op.x + (long long)(a_m[i] + dh * W + dw) * C +
-                                  c0 + chunk * 8
-                            : op.x;
-        cp_async_ca(a_tile + swizzled(r, chunk), src, ok);
-      }
-      k_col = tap * C + c0;
-      k_ok = c_ok;
+    for (int j = 0; j < kRun; j += 2) {
+      __nv_bfloat162 pair = __floats2bfloat162_rn(v[j], v[j + 1]);
+      packed[j / 2] = *reinterpret_cast<uint32_t*>(&pair);
     }
 #pragma unroll
-    for (int i = 0; i < kBN * 8 / T::kThreads; ++i) {
-      const int n = tid / 8 + 16 * T::WG * i;
-      const bool ok = k_ok && n0 + n < N;
+    for (int j = 0; j < kRun / 8; ++j)
+      *reinterpret_cast<uint4*>(a_ptr + swizzled(r, kk / 8 + j)) =
+          make_uint4(packed[4 * j], packed[4 * j + 1], packed[4 * j + 2],
+                     packed[4 * j + 3]);
+    const int k_col = step * kBK;  // the packed weight's first column
+#pragma unroll
+    for (int i = 0; i < kBN * 8 / Stem::kThreads; ++i) {
+      const int n = tid / 8 + 16 * i;
+      const bool ok = n0 + n < N;
       const bf16* src =
           ok ? op.w + (long long)(n0 + n) * kp + k_col + chunk * 8 : op.w;
       cp_async_cg(b_tile + swizzled(n, chunk), src, ok);
@@ -336,7 +290,6 @@ __device__ __forceinline__ void k_loop(const Operand<TIn>& op, int M, int H,
     if (s < steps) load(s, s);
     cp_async_commit();
   }
-  const uint32_t a_rows = (tid / 128) * 64 * 128;  // this warpgroup's cells
   for (int kt = 0; kt < steps; ++kt) {
     cp_async_wait<kAhead - 1>();
     fence_async_shared();
@@ -345,12 +298,12 @@ __device__ __forceinline__ void k_loop(const Operand<TIn>& op, int M, int H,
     if (next < steps) load(next, next % kStages);
     cp_async_commit();
     const uint32_t a_tile = base + (kt % kStages) * kStage;
-    const uint32_t b_tile = a_tile + T::kATile;
+    const uint32_t b_tile = a_tile + Stem::kATile;
     fence_acc(acc);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_m64n128k16(acc, descriptor(a_tile + a_rows + 32 * kk),
+      wgmma_m64n128k16(acc, descriptor(a_tile + 32 * kk),
                        descriptor(b_tile + 32 * kk));
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
@@ -362,69 +315,42 @@ __device__ __forceinline__ void k_loop(const Operand<TIn>& op, int M, int H,
   __syncthreads();
 }
 
-// How a conv's output takes a residual block's skip path (the entry
-// point's ``residual``).
-enum Skip { kNoSkip = 0, kProjection = 1, kIdentity = 2 };
-
-// One (BM x kBN) tile of a conv layer's output: relu(bn(conv(x)) + skip),
-// skip bn_r(proj(r)) (kProjection), r itself (kIdentity) or nothing.
-template <class T, bool FLAT, int SKIP, typename TIn>
-__global__ void __launch_bounds__(T::kThreads)
-    conv_kernel(Operand<TIn> op, BatchNormArgs bn, Operand<bf16> rop,
-                BatchNormArgs rbn, bf16* __restrict__ out, int M, int H,
-                int W, int N, float eps) {
+// One (64 x kBN) tile of the stem's output: relu(bn(conv(x))).
+__global__ void __launch_bounds__(Stem::kThreads)
+    conv_kernel(StemInput op, BatchNormArgs bn, bf16* __restrict__ out,
+                int M, int H, int W, int N, float eps) {
   extern __shared__ __align__(1024) unsigned char smem[];
   float* s_scale = reinterpret_cast<float*>(smem);
   float* s_offset = s_scale + kBN;
-  float* r_scale = s_offset + kBN;
-  float* r_offset = r_scale + kBN;
-  unsigned char* tiles = smem + kFold;
+  unsigned char* tiles = smem + Stem::kFold;
   if (smem_addr(tiles) % 1024 != 0) __trap();  // the swizzle needs it
-  const int m0 = blockIdx.x * T::BM;
+  const int m0 = blockIdx.x * Stem::BM;
   const int n0 = blockIdx.y * kBN;
   const int tid = threadIdx.x;
   // The epilogue's parameters of filter n0 + tid, loaded now and folded
   // after the K loop, so their latency overlaps it.
-  float p[10] = {0.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f};
-  const bool has_col = tid < kBN && n0 + tid < N;
+  float p[5] = {0.0f, 0.0f, 0.0f, 0.0f, 1.0f};
+  const bool has_col = n0 + tid < N;
   if (has_col) {
-    const BatchNormArgs* args[2] = {&bn, &rbn};
-#pragma unroll
-    for (int g = 0; g < (SKIP == kProjection ? 2 : 1); ++g) {
-      p[5 * g] = args[g]->bias[n0 + tid];
-      p[5 * g + 1] = args[g]->gamma[n0 + tid];
-      p[5 * g + 2] = args[g]->beta[n0 + tid];
-      p[5 * g + 3] = args[g]->mean[n0 + tid];
-      p[5 * g + 4] = args[g]->var[n0 + tid];
-    }
+    p[0] = bn.bias[n0 + tid];
+    p[1] = bn.gamma[n0 + tid];
+    p[2] = bn.beta[n0 + tid];
+    p[3] = bn.mean[n0 + tid];
+    p[4] = bn.var[n0 + tid];
   }
 
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-  k_loop<T, FLAT>(op, M, H, W, N, m0, n0, tiles, acc);
-  float racc[64];  // the projection's sums (kProjection only)
-  if constexpr (SKIP == kProjection) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) racc[i] = 0.0f;
-    k_loop<T, false>(rop, M, H, W, N, m0, n0, tiles, racc);
-  }
+  stem_k_loop(op, M, H, W, N, m0, n0, tiles, acc);
 
-  if (tid < kBN) {
-    float s = 0.0f, o = 0.0f, rs = 0.0f, ro = 0.0f;
-    if (has_col) {
-      s = p[1] / sqrtf(p[4] + eps);
-      o = (p[0] - p[3]) * s + p[2];
-      if constexpr (SKIP == kProjection) {
-        rs = p[6] / sqrtf(p[9] + eps);
-        ro = (p[5] - p[8]) * rs + p[7];
-      }
-    }
-    s_scale[tid] = s;
-    s_offset[tid] = o;
-    r_scale[tid] = rs;
-    r_offset[tid] = ro;
+  float s = 0.0f, o = 0.0f;
+  if (has_col) {
+    s = p[1] / sqrtf(p[4] + eps);
+    o = (p[0] - p[3]) * s + p[2];
   }
+  s_scale[tid] = s;
+  s_offset[tid] = o;
   __syncthreads();
 
   // wgmma's accumulator layout: warp w holds cells 16 w to 16 w + 15; for
@@ -441,29 +367,16 @@ __global__ void __launch_bounds__(T::kThreads)
     const int f = 8 * j + 2 * (lane & 3);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      float v0 = acc[4 * j + 2 * half] * s_scale[f] + s_offset[f];
-      float v1 = acc[4 * j + 2 * half + 1] * s_scale[f + 1] + s_offset[f + 1];
-      if constexpr (SKIP == kProjection) {
-        v0 += racc[4 * j + 2 * half] * r_scale[f] + r_offset[f];
-        v1 += racc[4 * j + 2 * half + 1] * r_scale[f + 1] + r_offset[f + 1];
-      }
-      if constexpr (SKIP == kIdentity) {
-        const int m = m0 + row0 + 8 * half;
-        if (m < M && n0 + f < N) {
-          const float2 r = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(
-                  rop.x + (long long)m * N + n0 + f));
-          v0 += r.x;
-          v1 += r.y;
-        }
-      }
+      const float v0 = acc[4 * j + 2 * half] * s_scale[f] + s_offset[f];
+      const float v1 =
+          acc[4 * j + 2 * half + 1] * s_scale[f + 1] + s_offset[f + 1];
       *reinterpret_cast<__nv_bfloat162*>(
           staged + (row0 + 8 * half) * kOutStride + f) =
           __floats2bfloat162_rn(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
     }
   }
   __syncthreads();
-  for (int e = tid; e < T::BM * kBN / 8; e += T::kThreads) {
+  for (int e = tid; e < Stem::BM * kBN / 8; e += Stem::kThreads) {
     const int r = e / (kBN / 8);
     const int col = n0 + (e % (kBN / 8)) * 8;
     if (m0 + r < M && col < N)
@@ -472,125 +385,11 @@ __global__ void __launch_bounds__(T::kThreads)
   }
 }
 
-template <class T, bool FLAT, int SKIP, typename TIn>
-cudaError_t launch_conv(const Operand<TIn>& op, const BatchNormArgs& bn,
-                        const Operand<bf16>& rop, const BatchNormArgs& rbn,
-                        bf16* out, int M, int H, int W, int N, float eps,
-                        cudaStream_t stream) {
-  auto kernel = conv_kernel<T, FLAT, SKIP, TIn>;
-  static bool sized = false;  // above 48 KB: once per kernel, before use
-  if (!sized) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
-    if (err != cudaSuccess) return err;
-    sized = true;
-  }
-  const dim3 grid((M + T::BM - 1) / T::BM, (N + kBN - 1) / kBN);
-  kernel<<<grid, T::kThreads, T::kSmem, stream>>>(op, bn, rop, rbn, out, M, H,
-                                                  W, N, eps);
-  return cudaGetLastError();
-}
-
-// The stem (one or a few K steps, its float32 gathers the slow part) runs
-// more, smaller tiles to an SM; the trunk shares each weight stage between
-// two warpgroups, or runs 64-cell tiles, three to an SM, where the caller
-// asks for them.
-using StemTiles = Tiles<1, 3>;
-using TrunkTiles = Tiles<2, 4>;
-using SmallTrunkTiles = Tiles<1, 3>;
-
-template <class T>
-cudaError_t launch_trunk(const Operand<bf16>& op, const BatchNormArgs& bn,
-                         const Operand<bf16>& rop, const BatchNormArgs& rbn,
-                         int residual, bf16* out, int M, int H, int W, int N,
-                         float eps, cudaStream_t s) {
-  switch (residual) {
-    case kNoSkip:
-      return launch_conv<T, false, kNoSkip>(op, bn, rop, rbn, out, M, H, W, N,
-                                            eps, s);
-    case kProjection:
-      return launch_conv<T, false, kProjection>(op, bn, rop, rbn, out, M, H,
-                                                W, N, eps, s);
-    case kIdentity:
-      return launch_conv<T, false, kIdentity>(op, bn, rop, rbn, out, M, H, W,
-                                              N, eps, s);
-  }
-  return cudaErrorInvalidValue;
-}
-
 // ---------------------------------------------------------------------------
-// The pipelined trunk conv (conv_kernel_ws): bf16 input, C_in and N
-// multiples of kBK, so that every K step is one tap's whole 64-channel slice
-// (one 128-byte row of each operand).
+// The block conv (conv_kernel_ws): bf16 input, C_in and N multiples of kBK,
+// so that every K step is one tap's whole 64-channel slice (one 128-byte
+// row of each operand).
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a,
-                                                 uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_k16(float (&d)[64], uint64_t a,
-                                          uint64_t b) {
-  wgmma_m64n128k16(d, a, b);
-}
-
-__device__ __forceinline__ void wgmma_k16(float (&d)[128], uint64_t a,
-                                          uint64_t b) {
-  wgmma_m64n256k16(d, a, b);
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
@@ -624,59 +423,20 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
       : "memory");
 }
 
-// One arrival on the barrier at ``bar`` in CTA ``cta`` of the cluster (with
-// the default CTA-scope release: cluster scope cost a K step a microsecond
-// on an H100).
-__device__ __forceinline__ void mbar_arrive_at(uint32_t bar, uint32_t cta) {
-  asm volatile(
-      "{\n.reg .b32 remote;\n"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
-      ::"r"(bar), "r"(cta)
-      : "memory");
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
-  return r;
-}
-
-// The 2-D box at (x0, x1) of ``map`` into ``dst``, completing on ``bar``,
-// written to every CTA of the cluster at the same offset (csize > 1) or to
-// this CTA's alone.
+// The 2-D box at (x0, x1) of ``map`` into ``dst``, completing on ``bar``.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int x0, int x1, uint32_t bar,
-                                         uint32_t csize) {
+                                         int x0, int x1, uint32_t bar) {
   const uint64_t desc = reinterpret_cast<uint64_t>(map);
-  if (csize > 1) {
-    const uint16_t mask = static_cast<uint16_t>((1u << csize) - 1);
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-        "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
-            dst),
-        "l"(desc), "r"(bar), "r"(x0), "r"(x1), "h"(mask)
-        : "memory");
-  } else {
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-        "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-        "l"(desc), "r"(bar), "r"(x0), "r"(x1)
-        : "memory");
-  }
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(desc), "r"(bar), "r"(x0), "r"(x1)
+      : "memory");
 }
 
 // Fetches a TMA descriptor ahead of its first load.
@@ -704,70 +464,61 @@ __device__ __forceinline__ void tma_load_im2col(uint32_t dst,
       : "memory");
 }
 
-// A pipelined tile: BM = 64 x WG board cells (WG consumer warpgroups) by BN
-// filters, and one producer warp. A ring of kStages stages in shared
-// memory, each the step's A tile (BM cells x 64 channels) and B tile (BN
-// filters x 64 K), 128-byte swizzled; the identity skip's tile beside it
-// (BN / 64 swizzled boxes of BM rows x 64 filters). The small tile (one
-// warpgroup of 128 filters) sizes its ring for two CTAs an SM.
-template <int WG_, int BN_, int SKIP_>
+// A pipelined tile: BM = 64 x WG board cells (WG consumer warpgroups, which
+// share each weight stage) by kBN filters, and one producer warp. A ring of
+// kStages stages in shared memory, each the step's A tile (BM cells x 64
+// channels) and B tile (kBN filters x 64 K), 128-byte swizzled; the
+// identity skip's tile beside it (two swizzled boxes of BM rows x 64
+// filters).
+template <int WG_, int SKIP_>
 struct Pipe {
   static constexpr int WG = WG_;
-  static constexpr int BN = BN_;
   static constexpr int SKIP = SKIP_;
   static constexpr int BM = 64 * WG;
   static constexpr int kConsumers = 128 * WG;
   static constexpr int kThreads = kConsumers + 32;
-  static constexpr int kAcc = BN / 2;  // accumulators a thread
-  static constexpr int kMinBlocks = WG == 1 && BN == 128 ? 2 : 1;
   static constexpr int kATile = BM * 128;  // bytes
-  static constexpr int kBTile = BN * 128;
+  static constexpr int kBTile = kBN * 128;
   static constexpr int kStage = kATile + kBTile;
-  static constexpr int kRow = BN + 8;  // staged output rows, bf16
-  static constexpr int kSkip = SKIP == kIdentity ? BM * BN * 2 : 0;
+  static constexpr int kRow = kBN + 8;  // staged output rows, bf16
+  static constexpr int kSkip = SKIP == kIdentity ? BM * kBN * 2 : 0;
   static constexpr int kMaxStages = 6;
-  // The epilogue's four arrays of BN floats, then the barriers.
+  // The epilogue's four arrays of kBN floats, then the barriers.
   static constexpr int kHead =
-      (16 * BN + 8 * (2 * kMaxStages + 1) + 1023) / 1024 * 1024;
-  static constexpr int kBudget = (kMinBlocks == 2 ? 113 : 227) * 1024;
-  static constexpr int kFit = (kBudget - kHead - kSkip) / kStage;
+      (16 * kBN + 8 * (2 * kMaxStages + 1) + 1023) / 1024 * 1024;
+  static constexpr int kFit = (227 * 1024 - kHead - kSkip) / kStage;
   static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
   static constexpr int kSmem = kHead + kStages * kStage + kSkip;
   static_assert(kStages >= 2, "a ring of at least two stages");
   static_assert(BM * kRow * 2 <= kStages * kStage, "staging fits the ring");
+  static_assert(kConsumers >= kBN, "a consumer thread a filter");
 };
 
 // The producer's side of one K loop (one thread): for each step, wait until
-// every CTA of the cluster has released the ring's stage, expect the
-// stage's bytes, load the A tile (one tap's 64 channels of the tile's
-// shifted cells, by TMA in im2col mode: zeros past the board's edges) and
-// this CTA's slice of the B tile (BN / csize filters), which TMA writes to
-// every CTA of the cluster. A CTA past M loads no A tile. ``t`` counts steps
-// over both loops; ``side()`` runs once the ring's first stages are in
-// flight.
+// the consumers have released the ring's stage, expect the stage's bytes,
+// load the A tile (one tap's 64 channels of the tile's shifted cells, by
+// TMA in im2col mode: zeros past the board's edges) and the B tile. ``t``
+// counts steps over both loops; ``side()`` runs once the ring's first
+// stages are in flight.
 template <class P, class Side>
 __device__ __forceinline__ void produce(const CUtensorMap* xmap,
                                         const CUtensorMap* wmap, int C, int ks,
-                                        int steps, int& t, bool cells, int h0,
-                                        int w0, int b0, int n0, uint32_t ring,
+                                        int steps, int& t, int h0, int w0,
+                                        int b0, int n0, uint32_t ring,
                                         uint32_t full0, uint32_t empty0,
-                                        uint32_t rank, uint32_t csize,
                                         Side side) {
   const int pad = ks / 2;
-  const int slice = P::BN / static_cast<int>(csize);
   int dh = 0, dw = 0, c0 = 0, k_col = 0;  // the tap's offsets from (h0, w0)
   for (int i = 0; i < steps; ++i, ++t) {
     const int s = t % P::kStages;
     const uint32_t full = full0 + 8 * s;
     mbar_wait(empty0 + 8 * s, ((t / P::kStages) & 1) ^ 1);
     const uint32_t a_tile = ring + s * P::kStage;
-    mbar_expect_tx(full, P::kBTile + (cells ? P::kATile : 0));
-    if (cells)
-      tma_load_im2col(a_tile, xmap, c0, w0 - pad, h0 - pad, b0,
-                      static_cast<uint16_t>(dw), static_cast<uint16_t>(dh),
-                      full);
-    tma_load(a_tile + P::kATile + rank * slice * 128, wmap, k_col,
-             n0 + static_cast<int>(rank) * slice, full, csize);
+    mbar_expect_tx(full, P::kStage);
+    tma_load_im2col(a_tile, xmap, c0, w0 - pad, h0 - pad, b0,
+                    static_cast<uint16_t>(dw), static_cast<uint16_t>(dh),
+                    full);
+    tma_load(a_tile + P::kATile, wmap, k_col, n0, full);
     if (i == (steps < P::kStages ? steps : P::kStages) - 1) side();
     k_col += kBK;
     c0 += kBK;
@@ -783,13 +534,12 @@ __device__ __forceinline__ void produce(const CUtensorMap* xmap,
 
 // The consumers' side of one K loop into ``acc``: wait for a stage, issue
 // the step's four wgmma (one group), keep it in flight while the previous
-// group completes, then release the previous step's stage in every CTA of
-// the cluster (lane i of each warp arrives at CTA i).
+// group completes, then release the previous step's stage (lane 0 of each
+// warp arrives).
 template <class P>
 __device__ __forceinline__ void consume(int steps, int& t, uint32_t ring,
                                         uint32_t full0, uint32_t empty0,
-                                        uint32_t csize, int wg, int lane,
-                                        float (&acc)[P::kAcc]) {
+                                        int wg, int lane, float (&acc)[64]) {
   for (int i = 0; i < steps; ++i, ++t) {
     const int s = t % P::kStages;
     mbar_wait(full0 + 8 * s, (t / P::kStages) & 1);
@@ -799,13 +549,12 @@ __device__ __forceinline__ void consume(int steps, int& t, uint32_t ring,
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_k16(acc, descriptor(a_tile + 32 * kk),
-                descriptor(b_tile + 32 * kk));
+      wgmma_m64n128k16(acc, descriptor(a_tile + 32 * kk),
+                       descriptor(b_tile + 32 * kk));
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
     fence_acc(acc);
-    if (t > 0 && lane < static_cast<int>(csize))
-      mbar_arrive_at(empty0 + 8 * ((t - 1) % P::kStages), lane);
+    if (t > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((t - 1) % P::kStages));
   }
 }
 
@@ -817,52 +566,47 @@ struct Maps {
   CUtensorMap w, x, rw, rx, skip;
 };
 
-// One (BM x BN) tile of a trunk conv's output, as conv_kernel's (the same
-// K order, float32 sums and epilogue), fed by a producer warp. A cluster's
-// CTAs share n0 and split each weight box between them.
+// One (BM x kBN) tile of a block conv's output, relu(bn(conv(x)) + skip),
+// skip bn_r(proj(r)) (kProjection), r itself (kIdentity) or nothing, fed by
+// a producer warp.
 template <class P>
-__global__ void __launch_bounds__(P::kThreads, P::kMinBlocks)
+__global__ void __launch_bounds__(P::kThreads)
     conv_kernel_ws(const __grid_constant__ Maps maps, int C, int ks,
                    BatchNormArgs bn, BatchNormArgs rbn,
                    bf16* __restrict__ out, int M, int H, int W, int N,
                    float eps) {
   constexpr int S = P::kStages;
-  constexpr int BN = P::BN;
   extern __shared__ __align__(1024) unsigned char smem[];
   float* s_scale = reinterpret_cast<float*>(smem);
-  float* s_offset = s_scale + BN;
-  float* r_scale = s_offset + BN;
-  float* r_offset = r_scale + BN;
-  const uint32_t full0 = smem_addr(smem + 16 * BN);
+  float* s_offset = s_scale + kBN;
+  float* r_scale = s_offset + kBN;
+  float* r_offset = r_scale + kBN;
+  const uint32_t full0 = smem_addr(smem + 16 * kBN);
   const uint32_t empty0 = full0 + 8 * S;
   const uint32_t skip_bar = empty0 + 8 * S;
   unsigned char* ring_ptr = smem + P::kHead;
   const uint32_t ring = smem_addr(ring_ptr);
   unsigned char* skip_tile = ring_ptr + S * P::kStage;
   const int tid = threadIdx.x;
-  const uint32_t csize = cluster_size();
   const int m0 = blockIdx.x * P::BM;
-  const int n0 = blockIdx.y * BN;
+  const int n0 = blockIdx.y * kBN;
   if (tid == 0) {
     if (ring % 1024 != 0) __trap();  // the swizzle needs it
     for (int s = 0; s < S; ++s) {
-      mbar_init(full0 + 8 * s, 1);  // the producer's expect_tx
-      mbar_init(empty0 + 8 * s, 4 * P::WG * csize);  // each consumer warp
+      mbar_init(full0 + 8 * s, 1);           // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, 4 * P::WG);  // each consumer warp
     }
     mbar_init(skip_bar, 1);
+    // The initialisations visible to the TMA unit's arrivals.
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // Every barrier of the cluster initialised before any CTA arrives at one
-  // or writes into another's ring.
-  cluster_sync();
+  __syncthreads();
   const int steps = ks * ks * (C / kBK);
   const int rsteps = P::SKIP == kProjection ? N / kBK : 0;
 
   if (tid >= P::kConsumers) {
     if (tid == P::kConsumers) {
-      const uint32_t rank = cluster_rank();
       const int hw = H * W;
-      const bool cells = m0 < M;
       const int b0 = m0 / hw;
       const int h0 = (m0 % hw) / W;
       const int w0 = m0 % W;
@@ -878,75 +622,66 @@ __global__ void __launch_bounds__(P::kThreads, P::kMinBlocks)
       auto skip = [&]() {
         if constexpr (P::SKIP == kIdentity) {
           mbar_expect_tx(skip_bar, P::kSkip);
-          for (int b = 0; b < BN / 64; ++b)
+          for (int b = 0; b < kBN / 64; ++b)
             tma_load(smem_addr(skip_tile) + b * P::BM * 128, &maps.skip,
-                     n0 + 64 * b, m0, skip_bar, 1);
+                     n0 + 64 * b, m0, skip_bar);
         }
       };
-      produce<P>(&maps.x, &maps.w, C, ks, steps, t, cells, h0, w0, b0, n0,
-                 ring, full0, empty0, rank, csize, skip);
+      produce<P>(&maps.x, &maps.w, C, ks, steps, t, h0, w0, b0, n0, ring,
+                 full0, empty0, skip);
       if constexpr (P::SKIP == kProjection)
-        produce<P>(&maps.rx, &maps.rw, N, 1, rsteps, t, cells, h0, w0, b0,
-                   n0, ring, full0, empty0, rank, csize, [] {});
+        produce<P>(&maps.rx, &maps.rw, N, 1, rsteps, t, h0, w0, b0, n0, ring,
+                   full0, empty0, [] {});
     }
     __syncwarp();
   } else {
     const int wg = tid / 128;
     const int lane = tid & 31;
-    // The epilogue's parameters of this thread's filters (tid, tid +
-    // kConsumers), loaded now and folded after the K loop, so that their
-    // latency overlaps it: bias, gamma, beta, mean and var of the conv (and
-    // of the projection).
-    constexpr int kCols = (BN + P::kConsumers - 1) / P::kConsumers;
+    // The epilogue's parameters of filter n0 + tid (threads past the tile's
+    // filters hold none), loaded now and folded after the K loop, so that
+    // their latency overlaps it: bias, gamma, beta, mean and var of the
+    // conv (and of the projection).
     constexpr int kGroups = P::SKIP == kProjection ? 2 : 1;
-    float prm[kCols][kGroups][5];
+    const int n = n0 + tid;
+    const bool real = tid < kBN && n < N;
+    float prm[kGroups][5];
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int n = n0 + tid + c * P::kConsumers;
-      const bool real = tid + c * P::kConsumers < BN && n < N;
-#pragma unroll
-      for (int g = 0; g < kGroups; ++g) {
-        const BatchNormArgs& a = g == 0 ? bn : rbn;
-        prm[c][g][0] = real ? a.bias[n] : 0.0f;
-        prm[c][g][1] = real ? a.gamma[n] : 0.0f;
-        prm[c][g][2] = real ? a.beta[n] : 0.0f;
-        prm[c][g][3] = real ? a.mean[n] : 0.0f;
-        prm[c][g][4] = real ? a.var[n] : 1.0f;
-      }
+    for (int g = 0; g < kGroups; ++g) {
+      const BatchNormArgs& a = g == 0 ? bn : rbn;
+      prm[g][0] = real ? a.bias[n] : 0.0f;
+      prm[g][1] = real ? a.gamma[n] : 0.0f;
+      prm[g][2] = real ? a.beta[n] : 0.0f;
+      prm[g][3] = real ? a.mean[n] : 0.0f;
+      prm[g][4] = real ? a.var[n] : 1.0f;
     }
-    float acc[P::kAcc];
+    float acc[64];
 #pragma unroll
-    for (int i = 0; i < P::kAcc; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
     int t = 0;
-    consume<P>(steps, t, ring, full0, empty0, csize, wg, lane, acc);
-    float racc[P::SKIP == kProjection ? P::kAcc : 1];
+    consume<P>(steps, t, ring, full0, empty0, wg, lane, acc);
+    float racc[P::SKIP == kProjection ? 64 : 1];
     if constexpr (P::SKIP == kProjection) {
 #pragma unroll
-      for (int i = 0; i < P::kAcc; ++i) racc[i] = 0.0f;
-      consume<P>(rsteps, t, ring, full0, empty0, csize, wg, lane, racc);
+      for (int i = 0; i < 64; ++i) racc[i] = 0.0f;
+      consume<P>(rsteps, t, ring, full0, empty0, wg, lane, racc);
     }
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     fence_acc(acc);
     if constexpr (P::SKIP == kProjection) fence_acc(racc);
-    if (lane < static_cast<int>(csize))
-      mbar_arrive_at(empty0 + 8 * ((t - 1) % S), lane);
+    if (lane == 0) mbar_arrive(empty0 + 8 * ((t - 1) % S));
     // Each filter's scale and offset (fold's arithmetic), zero past N.
-    float* folded[2][2] = {{s_scale, s_offset}, {r_scale, r_offset}};
+    if (tid < kBN) {
+      float* folded[2][2] = {{s_scale, s_offset}, {r_scale, r_offset}};
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int f = tid + c * P::kConsumers;
-      if (f < BN) {
-#pragma unroll
-        for (int g = 0; g < 2; ++g) {
-          float sc = 0.0f, of = 0.0f;
-          if (g < kGroups) {
-            const float* q = prm[c][g < kGroups ? g : 0];
-            sc = q[1] / sqrtf(q[4] + eps);
-            of = (q[0] - q[3]) * sc + q[2];
-          }
-          folded[g][0][f] = sc;
-          folded[g][1][f] = of;
+      for (int g = 0; g < 2; ++g) {
+        float sc = 0.0f, of = 0.0f;
+        if (g < kGroups) {
+          const float* q = prm[g < kGroups ? g : 0];
+          sc = q[1] / sqrtf(q[4] + eps);
+          of = (q[0] - q[3]) * sc + q[2];
         }
+        folded[g][0][tid] = sc;
+        folded[g][1][tid] = of;
       }
     }
     // Every consumer is past the ring and the scales are written: the ring
@@ -956,7 +691,7 @@ __global__ void __launch_bounds__(P::kThreads, P::kMinBlocks)
     bf16* staged = reinterpret_cast<bf16*>(ring_ptr);
     const int row0 = (tid >> 5) * 16 + (lane >> 2);
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
+    for (int j = 0; j < kBN / 8; ++j) {
       const int f = 8 * j + 2 * (lane & 3);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
@@ -984,17 +719,15 @@ __global__ void __launch_bounds__(P::kThreads, P::kMinBlocks)
       }
     }
     asm volatile("bar.sync 1, %0;\n" ::"n"(P::kConsumers) : "memory");
-    for (int e = tid; e < P::BM * BN / 8; e += P::kConsumers) {
-      const int row = e / (BN / 8);
-      const int col = n0 + (e % (BN / 8)) * 8;
+    for (int e = tid; e < P::BM * kBN / 8; e += P::kConsumers) {
+      const int row = e / (kBN / 8);
+      const int col = n0 + (e % (kBN / 8)) * 8;
       if (m0 + row < M && col < N)
         *reinterpret_cast<uint4*>(out + (long long)(m0 + row) * N + col) =
             *reinterpret_cast<const uint4*>(staged + row * P::kRow + col -
                                             n0);
     }
   }
-  // No CTA leaves while another may still arrive at its barriers.
-  cluster_sync();
 }
 
 // The driver's tensor-map encoders, through the runtime (no link to
@@ -1078,9 +811,9 @@ template <class P>
 cudaError_t launch_ws(const bf16* x, const bf16* w, int C, int ks,
                       const BatchNormArgs& bn, const bf16* r, const bf16* wr,
                       const BatchNormArgs& rbn, bf16* out, int M, int H, int W,
-                      int N, float eps, int cluster, cudaStream_t stream) {
+                      int N, float eps, cudaStream_t stream) {
   auto kernel = conv_kernel_ws<P>;
-  static bool sized = false;
+  static bool sized = false;  // above 48 KB: once per kernel, before use
   if (!sized) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
@@ -1089,51 +822,40 @@ cudaError_t launch_ws(const bf16* x, const bf16* w, int C, int ks,
   }
   const int B = M / (H * W);
   Maps maps;
-  bool ok = tiled_map(&maps.w, w, N, ks * ks * C, P::BN / cluster) &&
+  bool ok = tiled_map(&maps.w, w, N, ks * ks * C, kBN) &&
             im2col_map(&maps.x, x, B, H, W, C, ks, P::BM);
   maps.rw = maps.rx = maps.skip = maps.w;
   if (P::SKIP == kProjection)
-    ok = ok && tiled_map(&maps.rw, wr, N, N, P::BN / cluster) &&
+    ok = ok && tiled_map(&maps.rw, wr, N, N, kBN) &&
          im2col_map(&maps.rx, r, B, H, W, N, 1, P::BM);
   if (P::SKIP == kIdentity) ok = ok && tiled_map(&maps.skip, r, M, N, P::BM);
   if (!ok) return cudaErrorInvalidValue;
-  const int tiles = (M + P::BM - 1) / P::BM;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3((tiles + cluster - 1) / cluster * cluster,
-                        (N + P::BN - 1) / P::BN);
-  config.blockDim = dim3(P::kThreads);
-  config.dynamicSmemBytes = P::kSmem;
-  config.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  return cudaLaunchKernelEx(&config, kernel, maps, C, ks, bn, rbn, out, M, H,
-                            W, N, eps);
+  const dim3 grid((M + P::BM - 1) / P::BM, (N + kBN - 1) / kBN);
+  kernel<<<grid, P::kThreads, P::kSmem, stream>>>(maps, C, ks, bn, rbn, out,
+                                                  M, H, W, N, eps);
+  return cudaGetLastError();
 }
 
-template <int WG, int BN>
+// The tiles' instances: a projection's second accumulator only on
+// 128-cell tiles (two warpgroups).
+template <int WG>
 cudaError_t launch_ws_skip(const bf16* x, const bf16* w, int C, int ks,
                            const BatchNormArgs& bn, const bf16* r,
                            const bf16* wr, const BatchNormArgs& rbn,
                            int residual, bf16* out, int M, int H, int W, int N,
-                           float eps, int cluster, cudaStream_t s) {
+                           float eps, cudaStream_t s) {
   switch (residual) {
     case kNoSkip:
-      return launch_ws<Pipe<WG, BN, kNoSkip>>(x, w, C, ks, bn, r, wr, rbn, out,
-                                              M, H, W, N, eps, cluster, s);
-    case kProjection:  // the second accumulator: two warpgroups, 128 filters
-      if constexpr (BN == 128 && WG == 2)
-        return launch_ws<Pipe<WG, BN, kProjection>>(
-            x, w, C, ks, bn, r, wr, rbn, out, M, H, W, N, eps, cluster, s);
+      return launch_ws<Pipe<WG, kNoSkip>>(x, w, C, ks, bn, r, wr, rbn, out, M,
+                                          H, W, N, eps, s);
+    case kProjection:
+      if constexpr (WG == 2)
+        return launch_ws<Pipe<WG, kProjection>>(x, w, C, ks, bn, r, wr, rbn,
+                                                out, M, H, W, N, eps, s);
       break;
     case kIdentity:
-      return launch_ws<Pipe<WG, BN, kIdentity>>(x, w, C, ks, bn, r, wr, rbn,
-                                                out, M, H, W, N, eps, cluster,
-                                                s);
+      return launch_ws<Pipe<WG, kIdentity>>(x, w, C, ks, bn, r, wr, rbn, out,
+                                            M, H, W, N, eps, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1241,81 +963,55 @@ int fused_net_pack(const long long* table, int layers, int tiles, bf16* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One conv layer: x is (M = B*H*W, C) NHWC, float32 (x_float, the stem: no
-// residual, 64-cell tiles) or bf16 (C a multiple of 8); w its packed
-// (ks*ks*C, N) bf16 weight; N a multiple of 8. residual (a Skip): add to
-// relu's input the 1x1 projection of r ((M, N) bf16, packed weight wr
-// (N, N)) with its BatchNorm (1), or r itself (2; wr and rbn unread). bm:
-// the tile's cells, 64 or 128.
-int fused_net_conv(const void* x, int x_float, const bf16* w, int C, int ks,
+// The stem: x is the (M = B*H*W, C) NHWC float32 observations, w its packed
+// bf16 weight (N rows of padded_depth(ks*ks*C)); N a multiple of 8.
+int fused_net_conv(const float* x, const bf16* w, int C, int ks,
                    const float* bias, const float* gamma, const float* beta,
-                   const float* mean, const float* var, const bf16* r,
-                   const bf16* wr, const float* rbias, const float* rgamma,
-                   const float* rbeta, const float* rmean, const float* rvar,
-                   int residual, bf16* out, int M, int H, int W, int N,
-                   float eps, int bm, void* stream) {
-  if (N % 8 != 0 || residual < kNoSkip || residual > kIdentity)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const BatchNormArgs bn{bias, gamma, beta, mean, var};
-  const BatchNormArgs rbn{rbias, rgamma, rbeta, rmean, rvar};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Operand<bf16> rop{r, wr, N, 1};
-  cudaError_t err;
-  if (x_float) {
-    const Operand<float> op{static_cast<const float*>(x), w, C, ks};
-    err = residual != kNoSkip || bm != StemTiles::BM
-              ? cudaErrorInvalidValue
-              : launch_conv<StemTiles, true, kNoSkip>(op, bn, rop, rbn, out, M,
-                                                      H, W, N, eps, s);
-  } else if (C % 8 != 0) {
-    err = cudaErrorInvalidValue;
-  } else {
-    const Operand<bf16> op{static_cast<const bf16*>(x), w, C, ks};
-    if (bm == TrunkTiles::BM)
-      err = launch_trunk<TrunkTiles>(op, bn, rop, rbn, residual, out, M, H, W,
-                                     N, eps, s);
-    else if (bm == SmallTrunkTiles::BM)
-      err = launch_trunk<SmallTrunkTiles>(op, bn, rop, rbn, residual, out, M,
-                                          H, W, N, eps, s);
-    else
-      err = cudaErrorInvalidValue;
+                   const float* mean, const float* var, bf16* out, int M,
+                   int H, int W, int N, float eps, void* stream) {
+  if (N % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  static bool sized = false;  // above 48 KB: once, before use
+  if (!sized) {
+    cudaError_t err = cudaFuncSetAttribute(
+        conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Stem::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
   }
-  return static_cast<int>(err);
+  const StemInput op{x, w, C, ks};
+  const BatchNormArgs bn{bias, gamma, beta, mean, var};
+  const dim3 grid((M + Stem::BM - 1) / Stem::BM, (N + kBN - 1) / kBN);
+  conv_kernel<<<grid, Stem::kThreads, Stem::kSmem,
+                static_cast<cudaStream_t>(stream)>>>(op, bn, out, M, H, W, N,
+                                                     eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// One trunk conv layer through the pipelined kernel: as fused_net_conv's
-// bf16 path, with C and N multiples of 64; bm x bn the tile (64 or 128
-// cells, 128 or 256 filters; 256 not with a projection), cluster the CTAs
-// (1, 2 or 4, along M) that share each weight box.
+// One block conv through the pipelined kernel: x is (M = B*H*W, C) NHWC
+// bf16, w its packed (N, ks*ks*C) weight, C and N multiples of 64.
+// residual (a Skip): add to relu's input the 1x1 projection of r ((M, N)
+// bf16, packed weight wr (N, N)) with its BatchNorm (1; bm 128 only), or r
+// itself (2; wr and rbn unread). bm: the tile's cells, 128 or 192.
 int fused_net_conv_pipelined(
     const bf16* x, const bf16* w, int C, int ks, const float* bias,
     const float* gamma, const float* beta, const float* mean,
     const float* var, const bf16* r, const bf16* wr, const float* rbias,
     const float* rgamma, const float* rbeta, const float* rmean,
     const float* rvar, int residual, bf16* out, int M, int H, int W, int N,
-    float eps, int bm, int bn, int cluster, void* stream) {
+    float eps, int bm, void* stream) {
   if (C % kBK != 0 || N % kBK != 0 || residual < kNoSkip ||
-      residual > kIdentity || (cluster != 1 && cluster != 2 && cluster != 4))
+      residual > kIdentity)
     return static_cast<int>(cudaErrorInvalidValue);
-  const BatchNormArgs bn_args{bias, gamma, beta, mean, var};
+  const BatchNormArgs bn{bias, gamma, beta, mean, var};
   const BatchNormArgs rbn{rbias, rgamma, rbeta, rmean, rvar};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (bm == 64 && bn == 128)
-    err = launch_ws_skip<1, 128>(x, w, C, ks, bn_args, r, wr, rbn, residual,
-                                 out, M, H, W, N, eps, cluster, s);
-  else if (bm == 128 && bn == 128)
-    err = launch_ws_skip<2, 128>(x, w, C, ks, bn_args, r, wr, rbn, residual,
-                                 out, M, H, W, N, eps, cluster, s);
-  else if (bm == 64 && bn == 256)
-    err = launch_ws_skip<1, 256>(x, w, C, ks, bn_args, r, wr, rbn, residual,
-                                 out, M, H, W, N, eps, cluster, s);
-  else if (bm == 128 && bn == 256)
-    err = launch_ws_skip<2, 256>(x, w, C, ks, bn_args, r, wr, rbn, residual,
-                                 out, M, H, W, N, eps, cluster, s);
-  else if (bm == 192 && bn == 128)
-    err = launch_ws_skip<3, 128>(x, w, C, ks, bn_args, r, wr, rbn, residual,
-                                 out, M, H, W, N, eps, cluster, s);
+  if (bm == 128)
+    err = launch_ws_skip<2>(x, w, C, ks, bn, r, wr, rbn, residual, out, M, H,
+                            W, N, eps, s);
+  else if (bm == 192)
+    err = launch_ws_skip<3>(x, w, C, ks, bn, r, wr, rbn, residual, out, M, H,
+                            W, N, eps, s);
   return static_cast<int>(err);
 }
 

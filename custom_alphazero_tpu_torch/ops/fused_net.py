@@ -1,34 +1,32 @@
 """The policy-value net's inference forward as hand-written kernels.
 
 ``FusedForward(net)(obs)`` computes ``net(obs)`` for an eval-mode bf16
-``PolicyValueNet`` (models/policy_value.py) with one kernel per
-convolution of the trunk and one for both head convolutions, each with the
-layer's conv bias, eval-mode BatchNorm, residual skip and ReLU in its
-epilogue (csrc/fused_net.cu, built with nvcc by ``ops/_build.py`` on first
-use and bound through ctypes):
+``PolicyValueNet`` (models/policy_value.py) whose filters are a multiple
+of K_STEP, with one kernel per convolution of the trunk and one for both
+head convolutions, each with the layer's conv bias, eval-mode BatchNorm,
+residual skip and ReLU in its epilogue (csrc/fused_net.cu, built with nvcc
+by ``ops/_build.py`` on first use and bound through ctypes):
 
 - ``pack``: one launch a forward rounds every trunk conv weight, from the
   live float32 parameters, to bf16 (as autocast rounds them) into one
   buffer of C_out rows of (tap, C_in), the GEMM's K-major N x K operand;
 - ``conv``: an implicit GEMM on NHWC activations. One GEMM row is one board
   cell: M = B x H x W, N = filters, K = taps x C_in. No im2col tensor is
-  written. A bf16 trunk conv whose C_in and filters are multiples of
-  K_STEP takes the pipelined kernel: a producer thread streams each K
-  step's shifted cells (TMA's im2col mode, zeros past the board's edges)
-  and weight box (multicast within a cluster of CTAs) into a ring of
-  shared-memory stages that consumer warpgroups read with wgmma, paced by
-  mbarriers; ``conv_plan`` picks its tile and cluster by the GEMM's shape
-  (``conv.pipelined_launches`` counts it). The stem, which reads the
-  float32 observations and rounds them to bf16 on load, and any other
-  shape take the kernel whose threads gather both operands with masked
-  loads (``conv_tile`` picks its 128- or 64-cell tiles). The epilogue, in
-  float32 from the live parameters and running statistics, applies the
-  conv bias and the BatchNorm as one scale and offset a channel and, in a
-  residual block's second conv, adds the block's skip: its 1x1 projection
-  (a second accumulator over the block input, its own BatchNorm) or, in a
-  block without one (``residual_projection=False``), the block input's
-  bf16 tile itself; then ReLU, and writes bf16: one rounding a layer, where
-  the module path rounds after the conv, the BatchNorm and the add;
+  written. A block conv (bf16 input, C_in and filters multiples of K_STEP)
+  takes the pipelined kernel: a producer thread streams each K step's
+  shifted cells (TMA's im2col mode, zeros past the board's edges) and
+  weight box into a ring of shared-memory stages that consumer warpgroups
+  read with wgmma, paced by mbarriers; ``conv_plan`` picks its tile by the
+  GEMM's shape. The stem reads the float32 observations, rounds them to
+  bf16 on load and gathers both operands with masked loads in every
+  thread. The epilogue, in float32 from the live parameters and running
+  statistics, applies the conv bias and the BatchNorm as one scale and
+  offset a channel and, in a residual block's second conv, adds the
+  block's skip: its 1x1 projection (a second accumulator over the block
+  input, its own BatchNorm) or, in a block without one
+  (``residual_projection=False``), the block input's bf16 tile itself;
+  then ReLU, and writes bf16: one rounding a layer, where the module path
+  rounds after the conv, the BatchNorm and the add;
 - ``heads``: the policy conv (2 filters) and the value conv (1 filter) over
   the trunk's output with their BatchNorm and ReLU, written in float32.
 
@@ -59,7 +57,7 @@ and what the design does about it, is in the source's head comment.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -70,28 +68,26 @@ from custom_alphazero_tpu_torch.models.policy_value import (
 )
 from custom_alphazero_tpu_torch.ops import _build
 
-# The conv kernel's K stage (csrc/fused_net.cu's kBK): each packed weight
-# row is padded with zeros to a multiple of it.
+# The conv kernels' K stage (csrc/fused_net.cu's kBK): each packed weight
+# row is padded with zeros to a multiple of it, and the pipelined kernel
+# takes C_in and filters that are multiples of it.
 K_STEP = 64
+# The conv kernels' tile width in filters (csrc/fused_net.cu's kBN).
+TILE_FILTERS = 128
 # The pack kernel's tile of (C_out, K) elements.
 PACK_TILE = 32
-# A 64-cell trunk conv tile's time over half a 128-cell tile's, with an SM
-# full of either: it reads each weight stage for half as many cells. On an
-# H100 (132 SMs), at grids that fill both alike, 64-cell tiles took 1.02x
-# (c4-r5, B=1,024), 1.08x (its projection conv) and 1.05x (19 x 256,
-# B=512) the time.
-SMALL_TILE_COST = 1.05
 
 
 def applies(net: PolicyValueNet, obs: torch.Tensor) -> bool:
     """Whether ``make_evaluate_fn`` takes the fused forward: CUDA
     observations and a bf16 net in eval mode (its ``evaluate`` runs under
     ``torch.inference_mode``, so grad is off) whose filters are a multiple
-    of 8 (the kernels move activations 16 bytes at a time). Anything else
-    (the training forward, float32 nets, CPU tensors) runs ``net(obs)``."""
+    of K_STEP (the pipelined kernel's K steps are one tap's whole 64-channel
+    slice). Anything else (the training forward, float32 nets, CPU tensors,
+    other widths) runs ``net(obs)``."""
     return (obs.device.type == "cuda"
             and net.cfg.compute_dtype == "bfloat16" and not net.training
-            and net.cfg.filters % 8 == 0)
+            and net.cfg.filters % K_STEP == 0)
 
 
 def trunk_convs(net: PolicyValueNet):
@@ -106,91 +102,47 @@ def trunk_convs(net: PolicyValueNet):
     return convs
 
 
-def conv_tile(m: int, n: int, sms: int) -> int:
-    """The board cells of a trunk conv's tile (by 128 filters) for an
-    (m, n) GEMM output on ``sms`` SMs: 128 (two warpgroups sharing each
-    weight stage, a tile to an SM) unless 64-cell tiles (one warpgroup,
-    three to an SM) finish the grid sooner. The 128-cell grid takes its
-    waves of tiles, each two units of 64 cells; the 64-cell grid's busiest
-    SM has ceil(tiles / sms) of them, each a unit at SMALL_TILE_COST. At
-    c4-r5's self-play shape (43,008 x 128) 128 stays; at a 19 x 256 net's
-    B=256 (10,752 x 256) 168 tiles of 128 take two waves on 132 SMs, the
-    second a quarter full, and 336 of 64 take 3 units (an H100 read 43 and
-    44 us a conv against 53 and 60 with 128-cell tiles)."""
-    tiles = -(-m // 128) * -(-n // 128)
-    big = 2 * -(-tiles // sms)
-    small = SMALL_TILE_COST * -(-2 * tiles // sms)
-    return 64 if small < big else 128
-
-
-class ConvPlan(NamedTuple):
-    """A pipelined trunk conv's launch: tiles of ``bm`` board cells by
-    ``bn`` filters, in clusters of ``cluster`` CTAs along M that share each
-    weight box (csrc/fused_net.cu, ``conv_kernel_ws``)."""
-    bm: int
-    bn: int
-    cluster: int
-
-
 # The pipelined kernel's cost model on an H100 (PERF.md, section 6), fitted
 # to its measured times at the benchmark's and the arenas' shapes: a round
-# of CTAs (as many as the SMs hold at once) costs ROUND_US (the pipeline's
-# fill, the epilogue, the launch) plus UNIT_US[tile] for each million cell
-# x filter x K of an SM's tiles in it. Once both operands are TMA loads the
-# unit cost hardly depends on the tile's shape: the rounds decide.
+# of CTAs (one to an SM) costs ROUND_US (the pipeline's fill, the epilogue,
+# the launch) plus UNIT_US[tile cells] for each million cell x filter x K
+# of its tile. Once both operands are TMA loads the unit cost hardly
+# depends on the tile's shape: the rounds decide.
 ROUND_US = 5.0
-UNIT_US = {(64, 128): 0.42, (128, 128): 0.38, (192, 128): 0.38,
-           (64, 256): 0.39, (128, 256): 0.38}
+UNIT_US = {128: 0.38, 192: 0.38}
 
 
-def _resident(bm: int, bn: int) -> int:
-    """The CTAs an SM holds at once: two of the 64 x 128 tile (its ring
-    sized for it), else one."""
-    return 2 if (bm, bn) == (64, 128) else 1
-
-
-def conv_grid(plan: ConvPlan, m: int, n: int) -> Tuple[int, int]:
-    """The pipelined kernel's grid for an (m, n) output: M tiles rounded up
-    to whole clusters (a cluster's last CTAs may hold no cells), N tiles."""
-    tiles = -(-m // plan.bm)
-    return -(-tiles // plan.cluster) * plan.cluster, -(-n // plan.bn)
+def conv_grid(bm: int, m: int, n: int) -> Tuple[int, int]:
+    """The pipelined kernel's grid for an (m, n) output on tiles of ``bm``
+    cells by TILE_FILTERS: M tiles, N tiles."""
+    return -(-m // bm), -(-n // TILE_FILTERS)
 
 
 def conv_plan(m: int, n: int, cin: int, taps: int, sms: int,
-              projection: bool = False) -> Optional[ConvPlan]:
-    """The pipelined kernel's launch for a bf16 trunk conv with an (m, n)
-    output and K = taps x ``cin`` on ``sms`` SMs, or None where it cannot
-    take the shape (C_in or N not a multiple of K_STEP: its K steps are one
-    tap's whole 64-channel slice) and the layer runs ``conv_tile``'s
-    kernel.
+              projection: bool = False) -> int:
+    """The board cells of the pipelined kernel's tile (by TILE_FILTERS
+    filters) for a block conv with an (m, n) output and K = taps x ``cin``
+    on ``sms`` SMs.
 
-    A conv with a projection's second accumulator takes 128 x 128 tiles
-    (two warpgroups: one alone on an SM ran it at half the rate). Else, of
-    the tiles (256 filters only where N has them), the one whose last round
-    of CTAs ends first by the cost model above. A tile whose weight box is
-    wider than its cells (bn > bm) reads more weight than activations a
-    step: it takes clusters of 4 that share each weight box (2% faster on
-    an H100); the others take none (a cluster waits for its slowest CTA:
-    2% slower). At c4-r5's self-play shape (43,008 x 128, K 1,152) 192 x 128
-    tiles take 2 rounds where 128 x 128 take 3; at the 19 x 256 net's B=256
-    (10,752 x 256, K 2,304) one round of 112 tiles of 192 x 128 keeps 112
-    SMs busy where 84 of 128 x 256 would keep 84."""
-    if cin % K_STEP or n % K_STEP:
-        return None
+    A conv with a projection's second accumulator takes 128 (two
+    warpgroups: one alone on an SM ran it at half the rate). Else, of 128
+    and 192 cells (two and three warpgroups sharing each weight stage), the
+    tile whose last round of CTAs ends first by the cost model above. At
+    c4-r5's self-play shape (43,008 x 128, K 1,152) 192-cell tiles take 2
+    rounds where 128 take 3; at the 19 x 256 net's B=256 (10,752 x 256, K
+    2,304) 112 tiles of 192 take one round where 168 of 128 take two; at
+    c4-r5's arena batch (10,752 x 128) both take one round, and 84 tiles of
+    128 finish before 56 of 192."""
     if projection:
-        return ConvPlan(128, 128, 1)
+        return 128
     best = None
-    for (bm, bn), unit in UNIT_US.items():
-        if bn == 256 and n <= 128:
-            continue
-        plan = ConvPlan(bm, bn, 4 if bn > bm else 1)
-        gx, gy = conv_grid(plan, m, n)
-        resident = _resident(bm, bn)
-        rounds = -(-gx * gy // (sms * resident))
-        time = rounds * (ROUND_US + unit * resident * bm * bn * taps * cin
+    for bm, unit in UNIT_US.items():
+        gx, gy = conv_grid(bm, m, n)
+        rounds = -(-gx * gy // sms)
+        time = rounds * (ROUND_US + unit * bm * TILE_FILTERS * taps * cin
                          / 1e6)
         if best is None or time < best[0]:
-            best = (time, plan)
+            best = (time, bm)
     return best[1]
 
 
@@ -297,11 +249,10 @@ def _lib():
         lib = _build.load("fused_net")
         ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_net_pack.argtypes = [ptr, i, i, ptr, ptr]
-        lib.fused_net_conv.argtypes = ([ptr, i, ptr, i, i] + [ptr] * 12
-                                       + [i, ptr, i, i, i, i, f, i, ptr])
+        lib.fused_net_conv.argtypes = ([ptr, ptr, i, i] + [ptr] * 6
+                                       + [i, i, i, i, f, ptr])
         lib.fused_net_conv_pipelined.argtypes = (
-            [ptr, ptr, i, i] + [ptr] * 12 + [i, ptr, i, i, i, i, f, i, i, i,
-                                             ptr])
+            [ptr, ptr, i, i] + [ptr] * 12 + [i, ptr, i, i, i, i, f, i, ptr])
         lib.fused_net_heads.argtypes = ([ptr, i, i] + [ptr] * 6 + [i]
                                         + [ptr] * 6 + [i, f, ptr, ptr, ptr])
         for fn in (lib.fused_net_pack, lib.fused_net_conv,
@@ -354,29 +305,32 @@ def conv(x: torch.Tensor, w: torch.Tensor, block: ConvBlock, hw, out,
                          Tuple[torch.Tensor, torch.Tensor, ConvBlock]] = None
          ) -> None:
     """Launch one conv layer on NHWC ``x``, (B, H, W, C_in) or its
-    (M, C_in) rows (float32, the stem, or bf16), into (M, N) bf16 ``out``;
-    ``w`` is the layer's packed weight (``pack_layout``). ``residual``, added
-    before the ReLU: the block input ((M, N) bf16) of an identity block, or
-    (block input, its packed 1x1 weight, the proj ConvBlock) of a block with
-    a projection. A bf16 layer takes the pipelined kernel where
-    ``conv_plan`` has a launch for its shape."""
-    plan = None
-    if x.dtype == torch.bfloat16:
-        k = block.conv.kernel_size[0]
-        plan = conv_plan(out.shape[0], block.conv.out_channels, x.shape[-1],
-                         k * k, _sm_count(out.device),
-                         projection=isinstance(residual, tuple))
-    launch_conv(x, w, block, hw, out, residual, plan)
-
-
-def launch_conv(x, w, block: ConvBlock, hw, out, residual,
-                plan: Optional[ConvPlan]) -> None:
-    """``conv``'s launch with the pipelined kernel's ``plan``, or with
-    ``conv_tile``'s kernel where ``plan`` is None."""
+    (M, C_in) rows, into (M, N) bf16 ``out``; ``w`` is the layer's packed
+    weight (``pack_layout``). The stem (float32 ``x``, no ``residual``)
+    takes its own kernel; a block conv (bf16 ``x``) the pipelined kernel on
+    ``conv_plan``'s tile. ``residual``, added before the ReLU: the block
+    input ((M, N) bf16) of an identity block, or (block input, its packed
+    1x1 weight, the proj ConvBlock) of a block with a projection."""
     h, w_ = hw
     cin = x.shape[-1]
+    k = block.conv.kernel_size[0]
     n = block.conv.out_channels
     m = out.shape[0]
+    if x.dtype == torch.float32:
+        _launched("conv", _lib().fused_net_conv(
+            x.data_ptr(), w.data_ptr(), cin, k, *_bn_args(block),
+            out.data_ptr(), m, h, w_, n, block.bn.eps, _stream(out.device)))
+        conv.launches += 1
+        return
+    launch_conv(x, w, block, hw, out, residual,
+                conv_plan(m, n, cin, k * k, _sm_count(out.device),
+                          projection=isinstance(residual, tuple)))
+
+
+def launch_conv(x, w, block: ConvBlock, hw, out, residual, bm: int) -> None:
+    """``conv``'s launch of a block conv on the pipelined kernel's tile of
+    ``bm`` cells."""
+    h, w_ = hw
     bn = _bn_args(block)
     if residual is None:
         r, wr, rbn, skip = x, w, bn, 0
@@ -385,19 +339,11 @@ def launch_conv(x, w, block: ConvBlock, hw, out, residual,
     else:
         r, wr, rblock = residual
         rbn, skip = _bn_args(rblock), 1
-    head = (x.data_ptr(), w.data_ptr(), cin, block.conv.kernel_size[0], *bn,
-            r.data_ptr(), wr.data_ptr(), *rbn, skip, out.data_ptr(), m, h,
-            w_, n, block.bn.eps)
-    if plan is None:
-        tile = (64 if x.dtype == torch.float32
-                else conv_tile(m, n, _sm_count(out.device)))
-        _launched("conv", _lib().fused_net_conv(
-            head[0], int(x.dtype == torch.float32), *head[1:], tile,
-            _stream(out.device)))
-    else:
-        _launched("conv", _lib().fused_net_conv_pipelined(
-            *head, plan.bm, plan.bn, plan.cluster, _stream(out.device)))
-        conv.pipelined_launches += 1
+    _launched("conv", _lib().fused_net_conv_pipelined(
+        x.data_ptr(), w.data_ptr(), x.shape[-1], block.conv.kernel_size[0],
+        *bn, r.data_ptr(), wr.data_ptr(), *rbn, skip, out.data_ptr(),
+        out.shape[0], h, w_, block.conv.out_channels, block.bn.eps, bm,
+        _stream(out.device)))
     conv.launches += 1
     conv.identity_launches += int(skip == 2)
 
@@ -417,12 +363,10 @@ def heads(x: torch.Tensor, net: PolicyValueNet, p_out, v_out) -> None:
 
 # Launches made from the host. A launch recorded into a CUDA graph counts
 # once, when recorded; its replays are not counted. ``identity_launches``:
-# the conv launches that added an identity block's input;
-# ``pipelined_launches``: those that took the pipelined kernel.
+# the conv launches that added an identity block's input.
 pack.launches = 0
 conv.launches = 0
 conv.identity_launches = 0
-conv.pipelined_launches = 0
 heads.launches = 0
 
 
@@ -475,6 +419,9 @@ class FusedForward:
         if stem.weight.device != obs.device:
             raise ValueError(f"net on {stem.weight.device}, observations on "
                              f"{obs.device}")
+        if net.cfg.filters % K_STEP:
+            raise ValueError(f"the fused forward takes filters that are a "
+                             f"multiple of {K_STEP}; got {net.cfg.filters}")
         obs = obs.contiguous()
         table, rows, length = self._table(obs.device)
         packed = torch.empty(length, dtype=torch.bfloat16, device=obs.device)

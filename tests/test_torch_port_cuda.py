@@ -499,34 +499,28 @@ def test_search_tree_on_card_matches_cpu():
     assert searched == 4
 
 
-# (batch, filters, skip, plan or None for ``conv_plan``'s): c4-r5's
-# projection block at self-play's B=1,024; a 19 x 256 identity block at
-# B=256; a ragged M (5 boards, 210 cells: the second 128-cell tile holds 82);
-# a cluster of 4 whose last two CTAs hold no cells (3 boards, 126 cells in
-# 64-cell tiles).
+# (batch, filters, skip): c4-r5's projection block at self-play's B=1,024;
+# a 19 x 256 identity block at B=256; a ragged M (5 boards, 210 cells: the
+# second 128-cell tile holds 82); a 19 x 256 identity block at B=1,024.
 PIPELINED_CASES = {
-    "c4r5 projection": (1024, 128, "projection", None),
-    "az19x256 identity": (256, 256, "identity", None),
-    "ragged M": (5, 128, "none", None),
-    "empty cluster CTAs": (3, 256, "identity", (64, 256, 4)),
+    "c4r5 projection": (1024, 128, "projection"),
+    "az19x256 identity": (256, 256, "identity"),
+    "ragged M": (5, 128, "none"),
+    "19 x 256 at B=1024": (1024, 256, "identity"),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(PIPELINED_CASES))
-def test_pipelined_conv_matches_plain_and_present_kernel(case):
-    """One trunk conv layer through the pipelined kernel against the plain
-    layer and conv_tile's kernel, within phase 26's bound of a layer
-    (``FUSED_LAYER_STEPS`` bf16 steps of its magnitude), one pipelined
-    launch counted."""
+def test_pipelined_conv_matches_plain(case):
+    """One block conv layer through the pipelined kernel on ``conv_plan``'s
+    tile against the plain layer, within phase 26's bound of a layer
+    (``FUSED_LAYER_STEPS`` bf16 steps of its magnitude), one conv launch
+    counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from custom_alphazero_tpu_torch.ops import fused_net
 
-    bsz, filters, skip, plan = PIPELINED_CASES[case]
-    got = chip_smoke.pipelined_conv_check(
-        torch.device("cuda"), bsz, filters, skip,
-        None if plan is None else fused_net.ConvPlan(*plan))
-    assert got["pipelined_launches"] == 1
+    got = chip_smoke.pipelined_conv_check(torch.device("cuda"),
+                                          *PIPELINED_CASES[case])
+    assert got["launches"] == 1
     assert got["steps_plain"] <= chip_smoke.FUSED_LAYER_STEPS
-    assert got["steps_present"] <= chip_smoke.FUSED_LAYER_STEPS

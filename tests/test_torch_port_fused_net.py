@@ -37,16 +37,20 @@ from custom_alphazero_tpu_torch.runtime.train import (
 SHAPES = {"c4": (7, (6, 7), 4), "chess": (1968, (8, 8), 118),
           "c5x4": (5, (4, 5), 4)}
 SMALL = dict(depth=2, filters=16, value_hidden=32)
+# The width of the nets that drive the kernels' launches: the fused forward
+# takes filters that are a multiple of ``fused_net.K_STEP``.
+WIDE = 64
 
 
 def _net(shape: str, dtype: str = "bfloat16", seed: int = 0,
-         projection: bool = True, depth: int = SMALL["depth"]):
+         projection: bool = True, depth: int = SMALL["depth"],
+         filters: int = SMALL["filters"]):
     """An eval-mode net whose every parameter and running statistic is
     drawn, so each term of the epilogues matters; ``projection`` False:
     identity skips."""
     actions, hw, channels = SHAPES[shape]
-    cfg = ModelConfig(**dict(SMALL, depth=depth), compute_dtype=dtype,
-                      residual_projection=projection)
+    cfg = ModelConfig(**dict(SMALL, depth=depth, filters=filters),
+                      compute_dtype=dtype, residual_projection=projection)
     net = PolicyValueNet(actions, cfg, channels, hw)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -100,7 +104,8 @@ def test_plain_fused_forward_matches_module(shape, batch):
     assert _gap(fused, module) < 0.05
 
 
-def _flax_case(shape: str, batch: int, dtype: str):
+def _flax_case(shape: str, batch: int, dtype: str,
+               filters: int = SMALL["filters"]):
     """(Flax's logits and value in float32 and in bf16, the port's net in
     ``dtype`` built from the same variables, the observations). The
     variables are Flax's init after three train-mode updates of the batch
@@ -108,7 +113,8 @@ def _flax_case(shape: str, batch: int, dtype: str):
     so each term of the epilogues matters."""
     actions, hw, channels = SHAPES[shape]
     obs = _obs(shape, batch).numpy()
-    jcfg = JaxModelConfig(**SMALL, compute_dtype="float32")
+    widths = dict(SMALL, filters=filters)
+    jcfg = JaxModelConfig(**widths, compute_dtype="float32")
     flax_net = JaxPolicyValueNet(actions, jcfg)
     variables = flax_net.init(jax.random.PRNGKey(7), jnp.asarray(obs[:1]),
                               train=False)
@@ -130,7 +136,7 @@ def _flax_case(shape: str, batch: int, dtype: str):
         for d in ("float32", "bfloat16")}
     net = from_jax_variables(
         variables["params"], variables["batch_stats"], actions,
-        ModelConfig(**SMALL, compute_dtype=dtype), channels, hw,
+        ModelConfig(**widths, compute_dtype=dtype), channels, hw,
         device="cpu")
     return refs, net, torch.from_numpy(obs)
 
@@ -182,17 +188,22 @@ class _CudaObservations:
     device = torch.device("cuda")
 
 
+# The nets' filters by case: only multiples of K_STEP take the fused forward.
+APPLIES_FILTERS = {"filters": 12, "16 filters": 16, "96 filters": 96}
+
+
 @pytest.mark.parametrize("case", ["eval bf16", "training", "float32",
-                                  "cpu", "filters"])
+                                  "cpu", "filters", "16 filters",
+                                  "96 filters"])
 def test_applies_to_eval_bf16_nets_on_cuda_only(case):
-    net = _net("c4", "float32" if case == "float32" else "bfloat16")
+    """An eval-mode bf16 net of 64 filters on CUDA observations takes the
+    fused forward; a training or float32 net, CPU observations, and 12, 16
+    or 96 filters (not multiples of K_STEP) take the module path."""
+    net = _net("c4", "float32" if case == "float32" else "bfloat16",
+               filters=APPLIES_FILTERS.get(case, WIDE))
     obs = _obs("c4", 2) if case == "cpu" else _CudaObservations()
     if case == "training":
         net.train()
-    if case == "filters":  # 12 filters: not a multiple of the 16-byte loads
-        net = PolicyValueNet(7, ModelConfig(depth=1, filters=12,
-                                            value_hidden=8), 4, (6, 7))
-        net.eval()
     assert fused_net.applies(net, obs) == (case == "eval bf16")
 
 
@@ -252,7 +263,7 @@ def _epilogue(z, bn, n, eps):
 
 
 class _StandIns:
-    """csrc/fused_net.cu's three entry points in PyTorch, with the same
+    """csrc/fused_net.cu's four entry points in PyTorch, with the same
     arguments: pointers as integers, read and written in place. Each call
     is recorded with its shape arguments."""
 
@@ -271,49 +282,45 @@ class _StandIns:
             rows[:, :cin * taps] = w.permute(0, 2, 1).reshape(cout, -1)
         return 0
 
-    def fused_net_conv(self, x, x_float, w, C, ks, *args):
-        bn, (r, wr), rbn = args[:5], args[5:7], args[7:12]
-        residual, out, M, H, W, N, eps, bm, stream = args[12:]
-        self.calls.append(("conv", x_float, C, ks, residual))
-        # The tile the kernel would run: the stem's 64 cells, else the
-        # shape's (``conv_tile`` on an H100's 132 SMs).
-        assert bm == (64 if x_float else fused_net.conv_tile(M, N, 132))
-        self._conv(x, x_float, w, C, ks, bn, r, wr, rbn, residual, out, M, H,
-                   W, N, eps)
+    def fused_net_conv(self, x, w, C, ks, *args):
+        # The stem: float32 observations, no skip (the entry point takes
+        # neither a dtype, a skip nor a tile).
+        bn = args[:5]
+        out, M, H, W, N, eps, stream = args[5:]
+        self.calls.append(("conv", C, ks))
+        y = _epilogue(self._sums(_at(x, (M, C), torch.float32), w, C, ks, H,
+                                 W, N), bn, N, eps)
+        _at(out, (M, N), torch.bfloat16).copy_(torch.relu(y))
         return 0
 
     def fused_net_conv_pipelined(self, x, w, C, ks, *args):
         bn, (r, wr), rbn = args[:5], args[5:7], args[7:12]
-        residual, out, M, H, W, N, eps, bm, bn_, cluster, stream = args[12:]
-        plan = (bm, bn_, cluster)
-        self.calls.append(("conv_pipelined", C, ks, residual, plan))
-        # The launch ``conv_plan`` gives the shape on an H100's 132 SMs.
-        assert plan == tuple(fused_net.conv_plan(
-            M, N, C, ks * ks, 132, projection=residual == 1))
-        self._conv(x, 0, w, C, ks, bn, r, wr, rbn, residual, out, M, H, W, N,
-                   eps)
-        return 0
-
-    @staticmethod
-    def _conv(x, x_float, w, C, ks, bn, r, wr, rbn, residual, out, M, H, W,
-              N, eps):
-        def sums(inp, width, packed, k):
-            nchw = inp.view(-1, H, W, width).permute(0, 3, 1, 2)
-            rows = _at(packed, (N, fused_net.padded_depth(width, k * k)),
-                       torch.bfloat16)
-            kernel = rows[:, :k * k * width].reshape(N, k, k, width)
-            z = F.conv2d(nchw.to(torch.bfloat16).float(),
-                         kernel.permute(0, 3, 1, 2).float(), padding=k // 2)
-            return z.permute(0, 2, 3, 1).reshape(M, N)
-
-        xt = _at(x, (M, C), torch.float32 if x_float else torch.bfloat16)
-        y = _epilogue(sums(xt, C, w, ks), bn, N, eps)
+        residual, out, M, H, W, N, eps, bm, stream = args[12:]
+        self.calls.append(("conv_pipelined", C, ks, residual, bm))
+        # The tile ``conv_plan`` gives the shape on an H100's 132 SMs.
+        assert bm == fused_net.conv_plan(M, N, C, ks * ks, 132,
+                                         projection=residual == 1)
+        y = _epilogue(self._sums(_at(x, (M, C), torch.bfloat16), w, C, ks, H,
+                                 W, N), bn, N, eps)
         if residual == 1:
             rt = _at(r, (M, N), torch.bfloat16)
-            y = y + _epilogue(sums(rt, N, wr, 1), rbn, N, eps)
+            y = y + _epilogue(self._sums(rt, wr, N, 1, H, W, N), rbn, N, eps)
         elif residual == 2:
             y = y + _at(r, (M, N), torch.bfloat16).float()
         _at(out, (M, N), torch.bfloat16).copy_(torch.relu(y))
+        return 0
+
+    @staticmethod
+    def _sums(inp, packed, width, k, H, W, N):
+        """Float32 sums of the conv of the (M, width) NHWC rows ``inp``,
+        rounded to bf16, with the packed weight at ``packed``."""
+        nchw = inp.view(-1, H, W, width).permute(0, 3, 1, 2)
+        rows = _at(packed, (N, fused_net.padded_depth(width, k * k)),
+                   torch.bfloat16)
+        kernel = rows[:, :k * k * width].reshape(N, k, k, width)
+        z = F.conv2d(nchw.to(torch.bfloat16).float(),
+                     kernel.permute(0, 3, 1, 2).float(), padding=k // 2)
+        return z.permute(0, 2, 3, 1).reshape(-1, N)
 
     def fused_net_heads(self, x, M, C, wp, *args):
         pbn, P, wv, vbn, V = args[:5], args[5], args[6], args[7:12], args[12]
@@ -336,15 +343,35 @@ def stand_ins(monkeypatch):
     return lib
 
 
+def _block_calls(m: int, depth: int, skip: int):
+    """The stand-ins' records of a WIDE net's block convs at M = ``m``: each
+    block's conv1, then its conv2 with the skip (1 projection, 2 identity),
+    on ``conv_plan``'s tiles."""
+    plain = fused_net.conv_plan(m, WIDE, WIDE, 9, 132)
+    with_skip = fused_net.conv_plan(m, WIDE, WIDE, 9, 132,
+                                    projection=skip == 1)
+    return [call for _ in range(depth) for call in (
+        ("conv_pipelined", WIDE, 3, 0, plain),
+        ("conv_pipelined", WIDE, 3, skip, with_skip))]
+
+
+@pytest.mark.parametrize("projection", [True, False])
 @pytest.mark.parametrize("batch", [3, 64])
 @pytest.mark.parametrize("shape", ["c4", "chess"])
-def test_launch_sequence_and_counters(stand_ins, shape, batch):
+def test_launch_sequence_and_counters(stand_ins, shape, batch, projection):
     """The wrapper's launches for CUDA tensors, run on the CPU through the
-    stand-ins: the result is the Flax net's within the bf16 bounds above
-    and the plain version's, and each counter counts its launches."""
-    refs, net, obs = _flax_case(shape, batch, "bfloat16")
+    stand-ins, for a net of 64 filters with projections or identity skips:
+    the stem on its kernel, every block conv on the pipelined kernel with
+    ``conv_plan``'s tile (the stand-in holds each to it). The result is the
+    plain version's and, with projections, the Flax net's within the bf16
+    bounds above; each counter counts its launches."""
+    if projection:
+        refs, net, obs = _flax_case(shape, batch, "bfloat16", filters=WIDE)
+    else:
+        net = _net(shape, projection=False, filters=WIDE)
+        obs = _obs(shape, batch)
     counts = (fused_net.pack.launches, fused_net.conv.launches,
-              fused_net.heads.launches)
+              fused_net.conv.identity_launches, fused_net.heads.launches)
     forward = fused_net.FusedForward(net)
     with torch.inference_mode():
         got = forward._forward_cuda(obs)
@@ -353,21 +380,21 @@ def test_launch_sequence_and_counters(stand_ins, shape, batch):
     depth = len(net.blocks)
     assert (fused_net.pack.launches - counts[0],
             fused_net.conv.launches - counts[1],
-            fused_net.heads.launches - counts[2]) == (
-                2, 2 * (1 + 2 * depth), 2)
+            fused_net.conv.identity_launches - counts[2],
+            fused_net.heads.launches - counts[3]) == (
+                2, 2 * (1 + 2 * depth), 0 if projection else 2 * depth, 2)
     rows = fused_net.pack_layout(net)[0]
     channels = SHAPES[shape][2]
-    filters = SMALL["filters"]
     tile = fused_net.PACK_TILE
     tiles = max(-(-cout // tile) * (fused_net.padded_depth(cin, taps) // tile)
                 for _, _, cout, cin, taps in rows)
-    one = ([("pack", len(rows), tiles),
-            ("conv", 1, channels, 3, 0)]
-           + [("conv", 0, filters, 3, res)
-              for _ in range(depth) for res in (0, 1)]
-           + [("heads", filters, 2, 1)])
+    one = ([("pack", len(rows), tiles), ("conv", channels, 3)]
+           + _block_calls(obs.shape[0] * obs.shape[1] * obs.shape[2], depth,
+                          1 if projection else 2)
+           + [("heads", WIDE, 2, 1)])
     assert stand_ins.calls == one + one
-    _assert_matches_flax(got, refs, "bfloat16")
+    if projection:
+        _assert_matches_flax(got, refs, "bfloat16")
     # The plain version's arithmetic: float32 sums of one conv in another
     # order may move a layer's bf16 rounding by one step (2**-8 relative).
     assert _gap(got, want) < 1e-2
@@ -382,7 +409,7 @@ def test_inplace_load_and_train_step_reach_the_next_fused_forward(
     (what a captured graph and the pack table read); replacing a weight
     moves it."""
     obs = _obs("c4", 16)
-    cfg = ModelConfig(**SMALL)
+    cfg = ModelConfig(**dict(SMALL, filters=WIDE))
     gen = torch.Generator().manual_seed(3)
     state = init_train_state(7, cfg, gen, (6, 7, 4), device="cpu")
     net = state.net
@@ -398,7 +425,7 @@ def test_inplace_load_and_train_step_reach_the_next_fused_forward(
             return fused_net.forward_plain(net, obs)
 
     before = fused()
-    other = _net("c4", seed=5)
+    other = _net("c4", seed=5, filters=WIDE)
     net.load_state_dict(other.state_dict())
     promoted = fused()
     assert _gap(promoted, before) > 1e-3
@@ -419,14 +446,16 @@ def test_inplace_load_and_train_step_reach_the_next_fused_forward(
 
 
 def test_wrapper_refuses_what_the_kernels_do_not_take():
-    net = _net("c4")
-    forward = fused_net.FusedForward(net)
+    forward = fused_net.FusedForward(_net("c4", filters=WIDE))
     with pytest.raises(ValueError):
         forward._forward_cuda(_obs("chess", 2))
     with pytest.raises(ValueError):
         forward._forward_cuda(_obs("c4", 2).double())
     with pytest.raises(ValueError):
         forward(_obs("c4", 2).to("meta"))
+    # 16 filters: not a multiple of the pipelined kernel's K step.
+    with pytest.raises(ValueError):
+        fused_net.FusedForward(_net("c4"))._forward_cuda(_obs("c4", 2))
 
 
 def test_cpu_call_runs_the_plain_version():
@@ -467,13 +496,13 @@ def test_plain_fused_forward_matches_module_identity(shape, batch):
 @pytest.mark.parametrize("batch", [3, 64])
 @pytest.mark.parametrize("shape", ["c4", "c5x4"])
 def test_launch_sequence_and_counters_identity(stand_ins, shape, batch):
-    """An identity-skip net's launches through the stand-ins: one conv a
-    layer (no projection in the pack), each block's second conv adding the
-    block input (residual 2, counted by ``conv.identity_launches``); the
-    result is the plain version's and, within the bf16 bound, the module's
-    in float32."""
-    net = _net(shape, projection=False, depth=3)
-    twin = _net(shape, "float32", projection=False, depth=3)
+    """A 64-filter identity-skip net's launches through the stand-ins: one
+    conv a layer (no projection in the pack), each block's second conv on
+    the pipelined kernel adding the block input (residual 2, counted by
+    ``conv.identity_launches``); the result is the plain version's and,
+    within the bf16 bound, the module's in float32."""
+    net = _net(shape, projection=False, depth=3, filters=WIDE)
+    twin = _net(shape, "float32", projection=False, depth=3, filters=WIDE)
     obs = _obs(shape, batch)
     counts = (fused_net.conv.launches, fused_net.conv.identity_launches)
     forward = fused_net.FusedForward(net)
@@ -489,103 +518,41 @@ def test_launch_sequence_and_counters_identity(stand_ins, shape, batch):
     assert len(rows) == 1 + 2 * depth
     assert [r[0] for r in rows] == [b.conv.weight.data_ptr() for b in
                                     fused_net.trunk_convs(net)]
-    filters = SMALL["filters"]
     assert stand_ins.calls[1:-1] == (
-        [("conv", 1, 4, 3, 0)]
-        + [("conv", 0, filters, 3, res) for _ in range(depth)
-           for res in (0, 2)])
+        [("conv", 4, 3)] + _block_calls(batch * math.prod(SHAPES[shape][1]),
+                                        depth, 2))
     assert _gap(got, want) < 1e-2
     assert _gap(got, want32) < 0.05
 
 
-def test_conv_tile_by_shape():
-    """128-cell tiles at c4-r5's shapes (self-play B=1,024, arena B=256);
-    64-cell tiles where 128 would leave the last wave mostly empty: a
-    19 x 256 net at B=256 (168 tiles of 128 on 132 SMs) and B=1,024,
-    chess B=128; at the 19 x 256 net's B=512 both fill the card alike and
-    128 stays."""
-    assert fused_net.conv_tile(1024 * 42, 128, 132) == 128
-    assert fused_net.conv_tile(256 * 42, 128, 132) == 128
-    assert fused_net.conv_tile(256 * 42, 256, 132) == 64
-    assert fused_net.conv_tile(512 * 42, 256, 132) == 128
-    assert fused_net.conv_tile(1024 * 42, 256, 132) == 64
-    assert fused_net.conv_tile(128 * 64, 128, 132) == 64
-
-
-# ---------------------------------------------------------------------------
-# The pipelined conv's launches (filters a multiple of K_STEP)
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("projection", [True, False])
-def test_launch_sequence_and_counters_pipelined(stand_ins, projection):
-    """A net of 64 filters: the stem on conv_tile's kernel, every block
-    conv through the pipelined kernel with ``conv_plan``'s launch (the
-    stand-in holds each to it), counted by ``conv.pipelined_launches``; the
-    result is the plain version's."""
-    depth = 2
-    cfg = ModelConfig(depth=depth, filters=64, value_hidden=32,
-                      residual_projection=projection)
-    net = PolicyValueNet(7, cfg, 4, (6, 7))
-    gen = torch.Generator().manual_seed(4)
-    with torch.no_grad():
-        for t in net.parameters():
-            t.copy_(torch.randn(t.shape, generator=gen)
-                    / max(t[0].numel(), 1) ** 0.5)
-    net.eval()
-    obs = _obs("c4", 5)
-    counts = (fused_net.conv.launches, fused_net.conv.pipelined_launches)
-    with torch.inference_mode():
-        got = fused_net.FusedForward(net)._forward_cuda(obs)
-        want = fused_net.forward_plain(net, obs)
-    assert (fused_net.conv.launches - counts[0],
-            fused_net.conv.pipelined_launches - counts[1]) == (
-                1 + 2 * depth, 2 * depth)
-    m = 5 * 42
-    plan = tuple(fused_net.conv_plan(m, 64, 64, 9, 132))
-    skip_plan = tuple(fused_net.conv_plan(m, 64, 64, 9, 132,
-                                          projection=projection))
-    assert stand_ins.calls[1:-1] == (
-        [("conv", 1, 4, 3, 0)]
-        + [call for _ in range(depth) for call in (
-            ("conv_pipelined", 64, 3, 0, plan),
-            ("conv_pipelined", 64, 3, 1 if projection else 2, skip_plan))])
-    assert _gap(got, want) < 1e-2
-
-
-# (label, M, N, C_in, taps, projection, expected plan): the benchmark's
-# self-play shapes, the arenas' and serving's batches, a 19 x 256 net at
-# B=1,024 (clusters of 4) and shapes that fall back to conv_tile's kernel.
+# (label, M, N, C_in, taps, projection, expected tile cells): the
+# benchmark's self-play shapes, the arenas' and serving's batches, a 19 x 256
+# net at B=1,024 and at 3 boards, and chess-r5's self-play batch (B=128 on
+# 8 x 8).
 PLAN_CASES = [
-    ("c4-r5 self-play", 1024 * 42, 128, 128, 9, False, (192, 128, 1)),
-    ("c4-r5 self-play, projection", 1024 * 42, 128, 128, 9, True,
-     (128, 128, 1)),
-    ("c4az self-play", 256 * 42, 256, 256, 9, False, (192, 128, 1)),
-    ("c4-r5 arena", 256 * 42, 128, 128, 9, False, (128, 128, 1)),
-    ("c4-r5 serving batch", 16 * 42, 128, 128, 9, True, (128, 128, 1)),
-    ("19 x 256 at B=1024", 1024 * 42, 256, 256, 9, False, (128, 256, 4)),
-    ("19 x 256, 3 boards", 3 * 42, 256, 256, 9, False, (128, 128, 1)),
-    ("16 filters", 64 * 42, 16, 16, 9, False, None),
-    ("96 filters", 64 * 42, 96, 96, 9, False, None),
+    ("c4-r5 self-play", 1024 * 42, 128, 128, 9, False, 192),
+    ("c4-r5 self-play, projection", 1024 * 42, 128, 128, 9, True, 128),
+    ("c4az self-play", 256 * 42, 256, 256, 9, False, 192),
+    ("c4-r5 arena", 256 * 42, 128, 128, 9, False, 128),
+    ("c4-r5 serving batch", 16 * 42, 128, 128, 9, True, 128),
+    ("19 x 256 at B=1024", 1024 * 42, 256, 256, 9, False, 192),
+    ("19 x 256, 3 boards", 3 * 42, 256, 256, 9, False, 128),
+    ("chess B=128", 128 * 64, 128, 128, 9, False, 128),
 ]
 
 
 @pytest.mark.parametrize("case", PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
 def test_conv_plan_by_shape(case):
-    """The pipelined kernel's tile and cluster by shape, and its grid: every
-    output cell x filter in exactly one CTA's tile, and CTAs without cells
-    only to complete the last cluster."""
+    """The pipelined kernel's tile by shape, and its grid: every output
+    cell x filter in exactly one CTA's tile, and no CTA without cells."""
     _, m, n, cin, taps, projection, want = case
-    plan = fused_net.conv_plan(m, n, cin, taps, 132, projection=projection)
-    assert (None if plan is None else tuple(plan)) == want
-    if plan is None:
-        return
-    gx, gy = fused_net.conv_grid(plan, m, n)
-    covered = np.zeros((gx * plan.bm, gy * plan.bn), dtype=np.int8)
+    bm = fused_net.conv_plan(m, n, cin, taps, 132, projection=projection)
+    assert bm == want
+    gx, gy = fused_net.conv_grid(bm, m, n)
+    bn = fused_net.TILE_FILTERS
+    covered = np.zeros((gx * bm, gy * bn), dtype=np.int8)
     for bx in range(gx):
         for by in range(gy):
-            covered[bx * plan.bm:(bx + 1) * plan.bm,
-                    by * plan.bn:(by + 1) * plan.bn] += 1
+            covered[bx * bm:(bx + 1) * bm, by * bn:(by + 1) * bn] += 1
     assert (covered[:m, :n] == 1).all()
-    empty = gx - -(-m // plan.bm)
-    assert gx % plan.cluster == 0 and 0 <= empty < plan.cluster
+    assert (gx - 1) * bm < m and (gy - 1) * bn < n
