@@ -74,7 +74,8 @@ Phases (any failed check raises and exits non-zero):
    the first arena, the checkpoint restores with a matching hash. Prints
    each generation's seconds by phase, K1's launches and the graph captures
    (three: self-play's one, the arena's two; the renders' general search
-   adds none).
+   adds none), and holds ``safe_gamma.calls`` to one a search that drew
+   root noise (``FusedNetCount``).
 13. The supervisor: ``python -m custom_alphazero_tpu_torch.runtime.supervisor``
    with the flags of ``run_c4_r5.sh`` word for word, then
    ``--run.results_dir=<a copy of phase 12's run> --run.run_id=smoke
@@ -195,7 +196,8 @@ Phases (any failed check raises and exits non-zero):
     bound, the plain layer, cuDNN's conv alone). The kernels' line reports
     the fused net's launches counted from zero over main-path runs: phase
     11's arena, phase 12's ``run()`` and this phase's captured searches
-    (c4-r5 and 19 x 256), each held to its forwards (``FusedNetCount``).
+    (c4-r5 and 19 x 256), each held to its forwards, and its Gamma draws
+    to one ``safe_gamma`` call a noisy search (``FusedNetCount``).
 27. The kernels' JSON line, the card's line, and the result line.
 
 ``python3 chip_smoke.py --launch-shapes`` runs a tuning aid in place of the
@@ -359,8 +361,7 @@ def kernel_vs_plain(env, cfg, states, sims, gen, timed: bool,
     evaluate = dyadic_evaluate(a)
     static = search.static(bsz, sims)
     search.reset(static, states)
-    for w in range(sims):
-        static.buffers.gamma[w] = search._mcts.wave_noise(gen, bsz, device)
+    search._mcts.noise_plan(gen, sims, bsz, device, out=static.buffers.gamma)
     buf_k, carry_k = static.buffers, static.carry
     buf_p, carry_p = clone_step(fm, buf_k, carry_k)
     compared = ("root_prior", "leaf_board", "path", "counter", "renormed",
@@ -944,25 +945,53 @@ class FusedNetCount:
     each counter of ops/fused_net.py set to 0 on entry, and the forwards
     that ``make_evaluate_fn`` sent through ``FusedForward`` counted as
     recorded (inside a CUDA graph capture) or eager, beside the evaluations
-    it sent to the module path on CUDA and the plain version's calls.
+    it sent to the module path on CUDA and the plain version's calls; and
+    the searches that drew their own root noise (``noisy``: root noise on,
+    no ``gamma`` given) beside the Gamma sampler's calls (``noise``).
     ``check(name, depth, identity)`` holds the counters to the forwards:
     one pack, 1 + 2 x depth convs (``identity`` of them adding an identity
     block's input) and one heads launch each, no module-path evaluation on
-    the card, no plain forward."""
+    the card, no plain forward; and one ``safe_gamma`` call a noisy
+    search, whatever its length."""
 
     def __enter__(self):
-        from custom_alphazero_tpu_torch.ops import fused_net
+        import inspect
 
-        self.fused_net = fused_net
+        from custom_alphazero_tpu_torch.ops import fused_net, rng
+        from custom_alphazero_tpu_torch.ops.fused_mcts_v2 import (
+            FusedConnectNSearchV2,
+        )
+        from custom_alphazero_tpu_torch.search.mcts import MCTS
+
+        self.fused_net, self.rng = fused_net, rng
         fused_net.pack.launches = 0
         fused_net.conv.launches = 0
         fused_net.conv.identity_launches = 0
         fused_net.heads.launches = 0
-        self.recorded = self.eager = self.module = 0
+        self.recorded = self.eager = self.module = self.noisy = 0
         self.plain = fused_net.forward_plain.calls
+        self.noise = rng.safe_gamma.calls
         self._call = fused_net.FusedForward.__call__
         self._applies = fused_net.applies
         count = self
+
+        def noisy(fn):
+            signature = inspect.signature(fn)
+
+            def search(*args, **kwargs):
+                bound = signature.bind(*args, **kwargs).arguments
+                count.noisy += int(bound["self"].cfg.use_dirichlet
+                                   and bound.get("gamma") is None)
+                return fn(*args, **kwargs)
+            return search
+
+        self._searches = [(owner, name, getattr(owner, name))
+                          for owner, name in ((MCTS, "search"),
+                                              (MCTS, "search_tree"),
+                                              (FusedConnectNSearchV2,
+                                               "search_root_stats"))]
+        for owner, name, fn in self._searches:
+            setattr(owner, name, noisy(fn))
 
         def call(forward, obs):
             if torch.cuda.is_current_stream_capturing():
@@ -983,7 +1012,10 @@ class FusedNetCount:
     def __exit__(self, *exc):
         self.fused_net.FusedForward.__call__ = self._call
         self.fused_net.applies = self._applies
+        for owner, name, fn in self._searches:
+            setattr(owner, name, fn)
         self.plain = self.fused_net.forward_plain.calls - self.plain
+        self.noise = self.rng.safe_gamma.calls - self.noise
         return False
 
     def check(self, name: str, depth: int, identity: int = 0) -> dict:
@@ -993,7 +1025,9 @@ class FusedNetCount:
                   "conv_identity": fn.conv.identity_launches,
                   "heads": fn.heads.launches,
                   "forwards_recorded": self.recorded,
-                  "forwards_eager": self.eager}
+                  "forwards_eager": self.eager,
+                  "noisy_searches": self.noisy,
+                  "safe_gamma_calls": self.noise}
         check(counts["pack"] == forwards == counts["heads"]
               and counts["conv"] == (1 + 2 * depth) * forwards
               and counts["conv_identity"] == identity * forwards,
@@ -1002,6 +1036,8 @@ class FusedNetCount:
         check(self.module == 0, f"{name}: {self.module} evaluations took "
               f"the module path on the card")
         check(self.plain == 0, f"{name}: the plain forward ran")
+        check(self.noise == self.noisy, f"{name}: {self.noise} safe_gamma "
+              f"calls for {self.noisy} searches that drew root noise")
         return counts
 
 
@@ -1283,6 +1319,10 @@ def learner_phase(device):
     check(fused_count.recorded == 1 + 2 * 2
           and fused_count.eager >= (1 + 2 * 2) * fused_mcts_v2.WARMUP_WAVES,
           f"learner: fused forwards {fused_counts}")
+    # Root noise on: at least the two generations' 2 x MAX_PLIES searches
+    # drew their noise, one safe_gamma call each.
+    check(fused_count.noisy >= 2 * MAX_PLIES,
+          f"learner: {fused_count.noisy} searches drew root noise")
     log(f"learner: 2 generations and 2 arenas in {wall:.1f} s, "
         f"{summary['promotions']} promotions, steps {meta0['steps']} -> "
         f"{meta['steps']}, checkpoint restored with a matching hash; "
@@ -2392,7 +2432,6 @@ def reuse_card_vs_cpu(env, states, sims: int, plies: int, gen):
     bit-equal after every search and every advance. Returns (searches
     compared, card ms per wave)."""
     from custom_alphazero_tpu_torch.config import MCTSConfig
-    from custom_alphazero_tpu_torch.ops.rng import safe_gamma
     from custom_alphazero_tpu_torch.search.mcts import MCTS
 
     device = states.board.device
@@ -2407,8 +2446,7 @@ def reuse_card_vs_cpu(env, states, sims: int, plies: int, gen):
             "cpu": torch.ones(bsz, dtype=torch.int32)}
     searched, wave_ms = 0, []
     for ply in range(plies):
-        gamma = safe_gamma(gen, NOISE["dirichlet_alpha"],
-                           (sims, bsz, env.num_actions), device)
+        gamma = mcts.noise_plan(gen, sims, bsz, device)
         for where, g in (("card", gamma), ("cpu", gamma.cpu())):
             t0 = time.perf_counter()
             trees[where], free[where] = mcts.search_tree(
@@ -3655,7 +3693,8 @@ def fused_net_phase(device) -> dict:
                                     .manual_seed(5), 8)
     az_counts = count.check("19 x 256 captured search", len(az.blocks),
                             identity=len(az.blocks))
-    check(count.recorded == 1, f"19 x 256 captured search: {az_counts}")
+    check(count.recorded == 1 and count.noise == 1,
+          f"19 x 256 captured search: {az_counts}")
     log(f"fused net: the 19 x 256 identity net's captured search (256 games, "
         f"8 sims): launches {az_counts}")
 
@@ -3699,8 +3738,8 @@ def fused_net_phase(device) -> dict:
             # One capture: its warm-up waves and its recorded wave; the
             # two searches' 2 x FUSED_GRAPH_SIMS waves are replays.
             search_counts = count.check("captured search", len(net.blocks))
-            check((count.recorded, count.eager)
-                  == (1, fused_mcts_v2.WARMUP_WAVES),
+            check((count.recorded, count.eager, count.noise)
+                  == (1, fused_mcts_v2.WARMUP_WAVES, 2),
                   f"captured search: fused forwards {search_counts}")
         check(FusedConnectNSearchV2.captures == captures + 1,
               f"{label}: the promote made a new capture")

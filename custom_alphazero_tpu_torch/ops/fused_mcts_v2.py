@@ -665,10 +665,12 @@ class FusedConnectNSearchV2:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Root child visits (B, A) int32 and value sums (B, A) float32.
 
-        generator: draws the root noise when ``cfg.use_dirichlet``: one
-            (B, A) Gamma draw per simulation, in order, before the waves.
+        generator: draws the root noise when ``cfg.use_dirichlet``: all
+            the waves' Gamma draws as one (S, B, A) block (one
+            ``safe_gamma`` call, stream order "block", not "per wave")
+            straight into ``buffers.gamma``, before the waves.
         gamma: optional (S, B, A) per-wave Gamma draws used instead of the
-            generator (tests feed JAX's draws through it).
+            generator, copied whole (tests feed JAX's draws through it).
         graph: on the card, replay one captured CUDA graph per wave (the
             default, None or True) or launch every wave from the host
             (False: for an evaluator that cannot be captured, and for
@@ -685,12 +687,14 @@ class FusedConnectNSearchV2:
         static = self.static(bsz, simulations)
         self.reset(static, root_states)
         if self.cfg.use_dirichlet:
+            # The whole search's noise in one go, outside the captured wave
+            # graph: a replay reads it, never redraws it.
             with trace.span("search.noise"):
-                plan = None if gamma is not None else self._mcts.noise_plan(
-                    generator)
-                for w in range(simulations):
-                    static.buffers.gamma[w] = self._mcts.root_gamma(
-                        plan, gamma, w, bsz, dev)
+                if gamma is not None:
+                    static.buffers.gamma.copy_(gamma)
+                else:
+                    self._mcts.noise_plan(generator, simulations, bsz, dev,
+                                          out=static.buffers.gamma)
 
         if graph:
             # The first search of a (batch, simulations) captures the graph

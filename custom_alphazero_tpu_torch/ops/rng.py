@@ -2,7 +2,12 @@
 
 The port of ops/rng.py::safe_gamma, on torch's own random stream (it does
 not replay JAX's threefry bits; the parity tests inject JAX's draws
-instead, and this sampler is tested in distribution):
+instead, and this sampler is tested in distribution). A search draws
+all its waves' root noise as one (S, B, A) block, one call here, before
+its waves: torch's stream order is "block", not "per wave" (one call's
+Philox layout on CUDA differs from S calls'; on the CPU, at alpha 1, the
+block equals S per-wave draws bit for bit). ``safe_gamma.calls`` counts
+the calls.
 
 - alpha == 1: the exact exponential -log U, U in [tiny, 1) — the Connect-4
   production regime (dirichlet_alpha=1.0).
@@ -15,6 +20,7 @@ instead, and this sampler is tested in distribution):
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -27,15 +33,19 @@ def _uniform(generator, shape, device) -> torch.Tensor:
     return u.clamp_min(tiny)
 
 
-def safe_gamma(generator: torch.Generator, alpha: float, shape,
-               device) -> torch.Tensor:
-    """float32 Gamma(alpha) draws of ``shape`` from ``generator``."""
+def safe_gamma(generator: torch.Generator, alpha: float, shape, device,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """float32 Gamma(alpha) draws of ``shape`` from ``generator``, written
+    into ``out`` (float32, of ``shape``) when given."""
     alpha = float(alpha)
     if alpha <= 0.0:
         raise ValueError(f"alpha={alpha} must be positive")
     shape = tuple(shape)
+    safe_gamma.calls += 1
     if alpha == 1.0:
-        return -torch.log(_uniform(generator, shape, device))
+        # In place: rand, clamp, log, neg, four launches on the card.
+        u = torch.rand(shape, generator=generator, device=device, out=out)
+        return u.clamp_min_(torch.finfo(torch.float32).tiny).log_().neg_()
 
     boost = alpha < 1.0
     a = alpha + 1.0 if boost else alpha
@@ -58,7 +68,10 @@ def safe_gamma(generator: torch.Generator, alpha: float, shape,
     if boost:
         ub = _uniform(generator, shape, device)
         g = g * torch.exp(torch.log(ub) / alpha)
-    return g
+    return g if out is None else out.copy_(g)
+
+
+safe_gamma.calls = 0
 
 
 def gumbel(generator: torch.Generator, shape, device) -> torch.Tensor:

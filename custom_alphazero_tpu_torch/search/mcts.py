@@ -238,33 +238,30 @@ class MCTS:
         """(...,) PUCT argmax, the first maximum (lowest action)."""
         return self._ucb_scores(prior, nv, w).argmax(-1)
 
-    def noise_plan(self, generator: Optional[torch.Generator]):
-        """The search's root-noise source: the generator, or None when
-        noise is off."""
+    def noise_plan(self, generator: Optional[torch.Generator],
+                   simulations: int, batch: int, device,
+                   out: Optional[torch.Tensor] = None
+                   ) -> Optional[torch.Tensor]:
+        """The search's root noise: every wave's (B, A) Gamma draw as one
+        (S, B, A) float32 block, one ``safe_gamma`` call on ``generator``
+        (written into ``out`` when given); None when noise is off."""
         if not self.cfg.use_dirichlet:
             return None
         if generator is None:
             raise ValueError("use_dirichlet needs a torch.Generator")
-        return generator
+        return safe_gamma(generator, self.cfg.dirichlet_alpha,
+                          (simulations, batch, self.env.num_actions), device,
+                          out=out)
 
-    def wave_noise(self, plan, batch: int, device) -> Optional[torch.Tensor]:
-        """This wave's (B, A) Gamma draw, or None when noise is off. Draws
-        come from the plan generator in wave order."""
-        if plan is None:
-            return None
-        return safe_gamma(plan, self.cfg.dirichlet_alpha,
-                          (batch, self.env.num_actions), device)
-
-    def root_gamma(self, plan, gamma: Optional[torch.Tensor], wave: int,
-                   batch: int, device) -> Optional[torch.Tensor]:
+    def root_gamma(self, plan: Optional[torch.Tensor],
+                   gamma: Optional[torch.Tensor],
+                   wave: int) -> Optional[torch.Tensor]:
         """Wave ``wave``'s (B, A) root-noise draw: ``gamma[wave]`` when the
-        caller gives (S, B, A) draws, else the next draw of the plan; None
-        when noise is off."""
+        caller gives (S, B, A) draws, else ``plan[wave]``; None when noise
+        is off."""
         if not self.cfg.use_dirichlet:
             return None
-        if gamma is not None:
-            return gamma[wave]
-        return self.wave_noise(plan, batch, device)
+        return (gamma if gamma is not None else plan)[wave]
 
     def _root_noisy_prior(self, root_prior: torch.Tensor,
                           gamma: Optional[torch.Tensor]) -> torch.Tensor:
@@ -345,7 +342,7 @@ class MCTS:
         evaluate_fn: (B, H, W, C) observations -> (probs (B, A), value
             (B,)), the batched network forward.
         generator: draws the root noise when ``cfg.use_dirichlet``: one
-            (B, A) Gamma draw per simulation, in order.
+            (S, B, A) Gamma block (``noise_plan``) before the simulations.
         gamma: optional (S, B, A) draws used instead of the generator
             (tests feed JAX's draws through it).
         """
@@ -358,7 +355,8 @@ class MCTS:
         bsz = tree.parent.shape[0]
         dev = tree.parent.device
         batch = torch.arange(bsz, device=dev)
-        plan = None if gamma is not None else self.noise_plan(generator)
+        plan = None if gamma is not None else self.noise_plan(
+            generator, simulations, bsz, dev)
         # Child slot of each (node, prior slot) edge. In the top-K layout
         # the root's row stays empty: its children are in root_children,
         # by action.
@@ -372,7 +370,7 @@ class MCTS:
         for i in range(simulations):
             root_prior = self._root_noisy_prior(
                 tree.root_prior if compressed else tree.prior[:, 0],
-                self.root_gamma(plan, gamma, i, bsz, dev),
+                self.root_gamma(plan, gamma, i),
             )
 
             # Per-wave PUCT choice of every node (stats frozen in a wave).
@@ -597,7 +595,7 @@ class MCTS:
         tree needs room for ``simulations`` more nodes in every game
         (``advance_root(keep_cap=capacity - simulations)`` leaves it).
         generator, gamma: the root noise, one (B, A) Gamma draw per
-        simulation, as in ``search``.
+        simulation, drawn as one block as in ``search``.
         Updates ``tree`` in place; returns (tree, free)."""
         self._check_full_width(tree)
         env = self.env
@@ -608,7 +606,8 @@ class MCTS:
                 f"{int(free.max()) + simulations} slots, the tree has {n}")
         dev = tree.parent.device
         batch = torch.arange(bsz, device=dev)
-        plan = None if gamma is not None else self.noise_plan(generator)
+        plan = None if gamma is not None else self.noise_plan(
+            generator, simulations, bsz, dev)
         children = self._child_table(tree)
         free = free.clone()
 
@@ -621,7 +620,7 @@ class MCTS:
 
         for i in range(simulations):
             root_prior = self._root_noisy_prior(
-                tree.prior[:, 0], self.root_gamma(plan, gamma, i, bsz, dev))
+                tree.prior[:, 0], self.root_gamma(plan, gamma, i))
             has = children >= 0
             flat = children.clamp_min(0).long().view(bsz, -1)
             nv = torch.where(has, tree.visits.gather(1, flat).view_as(has),

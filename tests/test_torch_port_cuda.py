@@ -13,6 +13,7 @@ import chip_smoke
 from custom_alphazero_tpu_torch.config import ConnectNConfig, MCTSConfig
 from custom_alphazero_tpu_torch.envs.connect_n import ConnectN
 from custom_alphazero_tpu_torch.ops.fused_mcts_v2 import WARMUP_WAVES
+from custom_alphazero_tpu_torch.ops.rng import safe_gamma
 
 
 @pytest.mark.cuda
@@ -113,8 +114,10 @@ def test_graph_replay_equals_host_launches_and_plain_version(kernel):
 
     search = impl(env, cfg)
     module.wave_step.launches = 0
+    calls = safe_gamma.calls
     first = search.search_root_stats(states, evaluate, noise(), sims)
     assert module.wave_step.launches == sims + 1 + WARMUP_WAVES
+    assert safe_gamma.calls == calls + 1  # the search's noise is one block
     module.wave_step.launches = 0
     again = search.search_root_stats(states, evaluate, noise(), sims)
     assert module.wave_step.launches == sims + 1
@@ -125,9 +128,8 @@ def test_graph_replay_equals_host_launches_and_plain_version(kernel):
     plain = impl(env, cfg)
     static = plain.static(64, sims)
     plain.reset(static, states)
-    gen = noise()
-    for w in range(sims):
-        static.buffers.gamma[w] = plain._mcts.wave_noise(gen, 64, device)
+    plain._mcts.noise_plan(noise(), sims, 64, device,
+                           out=static.buffers.gamma)
     module.wave_step_reference.calls = 0
     for w in range(sims + 1):
         module.wave_step_reference(static.buffers, static.carry,

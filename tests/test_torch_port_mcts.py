@@ -5,7 +5,9 @@ two programs compute independently is exact), at full width and with top-K
 priors (``topk_actions=3``, with and without ``fast_edge_stats``), with root
 noise off and with JAX's per-wave Gamma draws injected. Every ``Tree``
 field must be equal bit for bit (float fields as int32 views), and so must
-the root outputs.
+the root outputs. The port's three searches (general, K1's, K2's) agree
+with each other from one generator seed, and each draws its root noise as
+one (S, B, A) block.
 """
 
 import jax
@@ -13,12 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import FusedNetCount, random_positions
 from chip_smoke import dyadic_evaluate as torch_dyadic
 from custom_alphazero_tpu.search.mcts import MCTS as JaxMCTS
 from custom_alphazero_tpu_torch.config import ConnectNConfig, MCTSConfig
 from custom_alphazero_tpu_torch.envs.connect_n import ConnectN
 from custom_alphazero_tpu_torch.ops.fused_mcts import FusedConnectNSearch
 from custom_alphazero_tpu_torch.ops.fused_mcts_v2 import FusedConnectNSearchV2
+from custom_alphazero_tpu_torch.ops.rng import safe_gamma
 from custom_alphazero_tpu_torch.search.mcts import MCTS
 from tests.test_torch_port_search import (
     _jax_dyadic,
@@ -130,14 +134,16 @@ def test_prior_width_matches_jax(actions, topk, sims, want):
     assert MCTS.AUTO_TOPK_CLAMP == JaxMCTS.AUTO_TOPK_CLAMP
 
 
-@pytest.mark.parametrize("use_dirichlet", [False, True],
-                         ids=["no-noise", "noise"])
-def test_general_search_matches_fused_searches(use_dirichlet):
+@pytest.mark.parametrize("use_dirichlet, alpha", [
+    (False, 1.0), (True, 1.0), (True, 0.3),
+], ids=["no-noise", "noise", "noise-alpha0.3"])
+def test_general_search_matches_fused_searches(use_dirichlet, alpha):
     """The port's general search, K1 and K2 searches: equal root stats from
-    one generator seed each, and the generators end in the same state."""
+    one generator seed each, and the generators end in the same state (at
+    alpha 0.3 on the Marsaglia-Tsang path too)."""
     env = ConnectN(ConnectNConfig())
     cfg = MCTSConfig(simulations=20, use_dirichlet=use_dirichlet,
-                     dirichlet_alpha=1.0)
+                     dirichlet_alpha=alpha)
     gen = torch.Generator().manual_seed(2)
     from chip_smoke import random_positions
 
@@ -160,3 +166,97 @@ def test_general_search_matches_fused_searches(use_dirichlet):
         assert torch.equal(v, visits)
         assert torch.equal(s.view(torch.int32), wsum.view(torch.int32))
         assert torch.equal(g_other, g_state)
+
+
+SEARCHES = {
+    "general": MCTS,
+    "K1": lambda env, cfg: FusedConnectNSearchV2(env, cfg, device="cpu"),
+    "K2": lambda env, cfg: FusedConnectNSearch(env, cfg, device="cpu"),
+}
+
+
+def _search_stats(search, states, generator, sims, gamma=None):
+    if isinstance(search, MCTS):
+        tree = search.search(states, torch_dyadic(7), generator, sims,
+                             gamma=gamma)
+        return search.root_child_visits(tree)
+    return search.search_root_stats(states, torch_dyadic(7), generator, sims,
+                                    gamma=gamma)[0]
+
+
+@pytest.mark.parametrize("use_dirichlet", [False, True],
+                         ids=["no-noise", "noise"])
+@pytest.mark.parametrize("sims", [20, 1])
+@pytest.mark.parametrize("kind", list(SEARCHES))
+def test_search_draws_its_noise_as_one_block(kind, sims, use_dirichlet):
+    """A noisy search makes one ``safe_gamma`` call, whatever its length,
+    and draws nothing else from its generator; a search without noise
+    makes none. A fused search's ``buffers.gamma`` holds the block that
+    ``noise_plan`` draws from the same seed."""
+    env = ConnectN(ConnectNConfig())
+    cfg = MCTSConfig(simulations=sims, use_dirichlet=use_dirichlet,
+                     dirichlet_alpha=1.0)
+    states = random_positions(env, 12, 10, torch.Generator().manual_seed(2),
+                              "cpu")
+    search = SEARCHES[kind](env, cfg)
+    gen = torch.Generator().manual_seed(5)
+    before = safe_gamma.calls
+    with FusedNetCount() as count:  # chip_smoke's count, as on the card
+        _search_stats(search, states, gen, sims)
+    assert safe_gamma.calls - before == int(use_dirichlet)
+    counts = count.check(kind, 0)
+    assert counts["noisy_searches"] == counts["safe_gamma_calls"] \
+        == int(use_dirichlet)
+
+    ref = torch.Generator().manual_seed(5)
+    block = MCTS(env, cfg).noise_plan(ref, sims, 12, "cpu")
+    assert (block is None) == (not use_dirichlet)
+    assert torch.equal(gen.get_state(), ref.get_state())
+    if use_dirichlet and kind != "general":
+        assert block.shape == (sims, 12, 7)
+        got = search.static(12, sims).buffers.gamma
+        assert torch.equal(got.view(torch.int32), block.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", list(SEARCHES))
+def test_injected_gamma_copied_whole(kind):
+    """Injected (S, B, A) draws: no ``safe_gamma`` call, and a fused search's
+    ``buffers.gamma`` is a copy of them; each search's root stats equal
+    those it reaches from the generator whose block the draws are."""
+    env = ConnectN(ConnectNConfig())
+    cfg = MCTSConfig(simulations=16, use_dirichlet=True, dirichlet_alpha=1.0)
+    states = random_positions(env, 12, 10, torch.Generator().manual_seed(3),
+                              "cpu")
+    gamma = MCTS(env, cfg).noise_plan(torch.Generator().manual_seed(6), 16,
+                                      12, "cpu")
+    search = SEARCHES[kind](env, cfg)
+    before = safe_gamma.calls
+    injected = _search_stats(search, states, None, 16, gamma=gamma.clone())
+    assert safe_gamma.calls == before
+    if kind != "general":
+        got = search.static(12, 16).buffers.gamma
+        assert torch.equal(got.view(torch.int32), gamma.view(torch.int32))
+    drawn = _search_stats(SEARCHES[kind](env, cfg), states,
+                          torch.Generator().manual_seed(6), 16)
+    assert torch.equal(injected, drawn)
+    assert int(drawn.sum()) > 0
+
+
+@pytest.mark.parametrize("shape", [(20, 12, 7), (250, 64, 7)])
+def test_noise_block_equals_per_wave_draws_at_alpha_one(shape):
+    """At alpha 1 on the CPU the (S, B, A) block is the S per-wave (B, A)
+    draws from the same seed, bit for bit, and the generator ends in the
+    same state: the stream order moved from per wave to block without
+    moving a CPU value."""
+    sims, batch, a = shape
+    env = ConnectN(ConnectNConfig())
+    cfg = MCTSConfig(simulations=sims, use_dirichlet=True,
+                     dirichlet_alpha=1.0)
+    block_gen = torch.Generator().manual_seed(4)
+    block = MCTS(env, cfg).noise_plan(block_gen, sims, batch, "cpu")
+    wave_gen = torch.Generator().manual_seed(4)
+    waves = torch.stack([safe_gamma(wave_gen, 1.0, (batch, a), "cpu")
+                         for _ in range(sims)])
+    assert block.dtype == torch.float32 and block.shape == shape
+    assert torch.equal(block.view(torch.int32), waves.view(torch.int32))
+    assert torch.equal(block_gen.get_state(), wave_gen.get_state())
