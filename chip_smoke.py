@@ -187,16 +187,19 @@ Phases (any failed check raises and exits non-zero):
     kernel's own inputs against the plain version, then whole forwards, at
     c4 B=1,024 and 256 (the c4-r5 net), chess B=128 (the chess-r5 net,
     118 input planes) and c4 B=256 with AlphaZero's 19 x 256 identity-skip
-    net (seeded); a promote between two replays of one captured
+    net and Leela Chess Zero's SE 20 x 256 net (seeded; its gates'
+    ``se_kernel`` on the kernel's inputs too, and its forward on both conv
+    tiles, twice bit-equal); a promote between two replays of one captured
     search graph gives a fresh capture's results, on the fused and the
     module path; the forward's device time beside its bound, the plain
     version's and the module path's (cuDNN), and each kernel's, at c4-r5's
-    B=1,024 and the 19 x 256 net's B=256; each block conv of those two
+    B=1,024 and the 19 x 256 and SE nets' B=256; each block conv of those two
     shapes through the pipelined kernel (``conv_times``: us a launch, the
     bound, the plain layer, cuDNN's conv alone). The kernels' line reports
     the fused net's launches counted from zero over main-path runs: phase
     11's arena, phase 12's ``run()`` and this phase's captured searches
-    (c4-r5 and 19 x 256), each held to its forwards, and its Gamma draws
+    (c4-r5, 19 x 256 and SE 20 x 256: ``se.launches`` = 20 a forward in the
+    SE net, 0 in the others), each held to its forwards, and its Gamma draws
     to one ``safe_gamma`` call a noisy search (``FusedNetCount``).
 27. The kernels' JSON line, the card's line, and the result line.
 
@@ -948,11 +951,12 @@ class FusedNetCount:
     it sent to the module path on CUDA and the plain version's calls; and
     the searches that drew their own root noise (``noisy``: root noise on,
     no ``gamma`` given) beside the Gamma sampler's calls (``noise``).
-    ``check(name, depth, identity)`` holds the counters to the forwards:
-    one pack, 1 + 2 x depth convs (``identity`` of them adding an identity
-    block's input) and one heads launch each, no module-path evaluation on
-    the card, no plain forward; and one ``safe_gamma`` call a noisy
-    search, whatever its length."""
+    ``check(name, depth, identity, se)`` holds the counters to the
+    forwards: one pack, 1 + 2 x depth convs (``identity`` of them adding an
+    identity block's input), ``se`` squeeze-excitation launches and one
+    heads launch each, no module-path evaluation on the card, no plain
+    forward; and one ``safe_gamma`` call a noisy search, whatever its
+    length."""
 
     def __enter__(self):
         import inspect
@@ -967,6 +971,7 @@ class FusedNetCount:
         fused_net.pack.launches = 0
         fused_net.conv.launches = 0
         fused_net.conv.identity_launches = 0
+        fused_net.se.launches = 0
         fused_net.heads.launches = 0
         self.recorded = self.eager = self.module = self.noisy = 0
         self.plain = fused_net.forward_plain.calls
@@ -1018,19 +1023,21 @@ class FusedNetCount:
         self.noise = self.rng.safe_gamma.calls - self.noise
         return False
 
-    def check(self, name: str, depth: int, identity: int = 0) -> dict:
+    def check(self, name: str, depth: int, identity: int = 0,
+              se: int = 0) -> dict:
         fn = self.fused_net
         forwards = self.recorded + self.eager
         counts = {"pack": fn.pack.launches, "conv": fn.conv.launches,
                   "conv_identity": fn.conv.identity_launches,
-                  "heads": fn.heads.launches,
+                  "se": fn.se.launches, "heads": fn.heads.launches,
                   "forwards_recorded": self.recorded,
                   "forwards_eager": self.eager,
                   "noisy_searches": self.noisy,
                   "safe_gamma_calls": self.noise}
         check(counts["pack"] == forwards == counts["heads"]
               and counts["conv"] == (1 + 2 * depth) * forwards
-              and counts["conv_identity"] == identity * forwards,
+              and counts["conv_identity"] == identity * forwards
+              and counts["se"] == se * forwards,
               f"{name}: fused net launches {counts} do not match its "
               f"forwards")
         check(self.module == 0, f"{name}: {self.module} evaluations took "
@@ -3309,20 +3316,33 @@ def fused_flops_and_bytes(net, bsz: int, hw) -> tuple:
     for dense in (net.policy_dense, net.value_dense1, net.value_dense2):
         flops += 2 * bsz * dense.in_features * dense.out_features
         bytes_ += 4 * dense.weight.numel()
+    for block in net.blocks:
+        if block.se is not None:
+            # The gate's dense layers, its second conv's output read twice
+            # and the block's output written.
+            for dense in (block.se.dense1, block.se.dense2):
+                flops += 2 * bsz * dense.in_features * dense.out_features
+                bytes_ += 4 * dense.weight.numel()
+            bytes_ += 3 * 2 * m * net.cfg.filters
     return flops, bytes_
 
 
-def az_net(device):
+def az_net(device, depth: int = 19, filters: int = 256, se_ratio: int = 0,
+           seed: int = 19):
     """AlphaZero's 19 x 256 identity-skip net at Connect-4's shapes, eval
     mode: the port's init from a fixed seed, then every BatchNorm's scale,
     offset and running statistics and every conv bias drawn away from their
-    identity values (the benchmark's c4-az19x256 recipe's ranges)."""
+    identity values (the benchmark's c4-az19x256 recipe's ranges). With
+    ``se_ratio``, a squeeze-excitation gate in every block, its dense
+    biases drawn with a standard deviation of 0.5 (the c4-se20x256
+    recipe's), so that sigmoid(g) and the offset o stay off 1 and 0."""
     from custom_alphazero_tpu_torch.config import ModelConfig
     from custom_alphazero_tpu_torch.runtime.train import init_train_state
 
-    gen = torch.Generator(device=device).manual_seed(19)
-    net = init_train_state(7, ModelConfig(depth=19, filters=256,
-                                          residual_projection=False),
+    gen = torch.Generator(device=device).manual_seed(seed)
+    net = init_train_state(7, ModelConfig(depth=depth, filters=filters,
+                                          residual_projection=False,
+                                          se_ratio=se_ratio),
                            gen, (6, 7, 4), device=device).net.eval()
     with torch.no_grad():
         for module in net.modules():
@@ -3337,7 +3357,74 @@ def az_net(device):
             elif isinstance(module, torch.nn.Conv2d):
                 module.bias.copy_(0.05 * torch.randn(
                     module.bias.shape, generator=gen, device=device))
+        for block in net.blocks:
+            if block.se is not None:
+                for dense in (block.se.dense1, block.se.dense2):
+                    dense.bias.copy_(0.5 * torch.randn(
+                        dense.bias.shape, generator=gen, device=device))
     return net
+
+
+def se_net(device, depth: int = 20, filters: int = 256, ratio: int = 8):
+    """Leela Chess Zero's squeeze-excitation tower (20 x 256, a gate of
+    ratio 8 in every identity block) at Connect-4's shapes: ``az_net``
+    with gates."""
+    return az_net(device, depth, filters, ratio, seed=20)
+
+
+# An SE net's forward on the card against its module path and its plain
+# version: logits as a share of the plain logits' RMS, the value as is.
+# Two forwards of the same observations are bit-equal (the gates' means
+# are summed in a fixed order).
+FUSED_SE_LOGIT_LIMIT = 0.06
+FUSED_SE_VALUE_LIMIT = 0.065
+
+
+def se_forward_check(device, bsz: int, filters: int, depth: int = 20) -> dict:
+    """An SE net (``se_net``) of ``filters`` at B=``bsz`` through the fused
+    forward, twice, against the plain version and the module path (bf16
+    autocast, cuDNN): the gaps, whether the two forwards were bit-equal,
+    the launches counted in one forward and the block convs' tile."""
+    from custom_alphazero_tpu_torch.config import ConnectNConfig
+    from custom_alphazero_tpu_torch.envs.connect_n import ConnectN
+    from custom_alphazero_tpu_torch.ops import fused_net
+
+    env = ConnectN(ConnectNConfig())
+    gen = torch.Generator(device=device).manual_seed(bsz + filters)
+    net = se_net(device, depth, filters)
+    obs = env.observe(random_positions(env, bsz, 30, gen, device))
+    forward = fused_net.FusedForward(net)
+    with torch.inference_mode():
+        counts = (fused_net.conv.launches, fused_net.se.launches,
+                  fused_net.forward_plain.calls)
+        got = forward(obs)
+        counts = tuple(after - before for after, before in zip(
+            (fused_net.conv.launches, fused_net.se.launches,
+             fused_net.forward_plain.calls), counts))
+        again = forward(obs)
+        plain = fused_net.forward_plain(net, obs)
+        module = net(obs)
+        torch.cuda.synchronize()
+    rms = plain[0].float().square().mean().sqrt().item()
+
+    def gaps(a):
+        return ((a[0].float() - plain[0]).abs().max().item() / rms,
+                (a[1].float() - plain[1]).abs().max().item())
+
+    m = bsz * 42
+    return {"logit_gap": gaps(got)[0], "value_gap": gaps(got)[1],
+            "module_logit_gap": gaps(module)[0],
+            "module_value_gap": gaps(module)[1],
+            "fused_module_logit_gap": (got[0].float() - module[0].float()
+                                       ).abs().max().item() / rms,
+            "fused_module_value_gap": (got[1].float() - module[1].float()
+                                       ).abs().max().item(),
+            "repeat_equal": bool(torch.equal(got[0], again[0])
+                                 and torch.equal(got[1], again[1])),
+            "conv_launches": counts[0], "se_launches": counts[1],
+            "plain_calls": counts[2],
+            "tile": fused_net.conv_plan(m, filters, filters, 9,
+                                        fused_net._sm_count(device))}
 
 
 def conv_layer_case(device, bsz: int, filters: int, skip: str,
@@ -3536,10 +3623,11 @@ def fused_net_phase(device) -> dict:
     """Phase 26: ops/fused_net.py's kernels on the card. Each kernel against
     its plain version (the pack bit-equal, every conv layer and the heads
     on the kernel's own inputs, then whole forwards) at c4 B=1,024 and 256,
-    chess B=128 and the 19 x 256 identity net at c4 B=256; a promote
-    between two replays of a captured search graph changes its results as
-    it changes the module path's; the identity net's captured search counts
-    its launches; times."""
+    chess B=128, the 19 x 256 identity net and the SE 20 x 256 net at c4
+    B=256; a promote between two replays of a captured search graph changes
+    its results as it changes the module path's; the identity and SE nets'
+    captured searches count their launches; the SE net's forward on both
+    tiles, twice bit-equal; times."""
     import copy
 
     import torch.nn.functional as F
@@ -3567,12 +3655,15 @@ def fused_net_phase(device) -> dict:
     chess_obs = (torch.rand((128, 8, 8, 118), generator=gen, device=device)
                  < 0.1).float()
     az = az_net(device)
+    se = se_net(device)
     cases = [("c4 B=1024", net, env.observe(random_positions(
                   env, 1024, 30, gen, device))),
              ("c4 B=256", net, env.observe(random_positions(
                   env, 256, 30, gen, device))),
              ("chess B=128", chess, chess_obs),
              ("az19x256 B=256", az, env.observe(random_positions(
+                  env, 256, 30, gen, device))),
+             ("se20x256 B=256", se, env.observe(random_positions(
                   env, 256, 30, gen, device)))]
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3629,6 +3720,21 @@ def fused_net_phase(device) -> dict:
                 z = torch.empty_like(x_flat)
                 w2 = next(offsets)
                 y_nchw = y.view(bsz, h, w, -1).permute(0, 3, 1, 2)
+                if block.se is not None:
+                    # The second conv without skip or ReLU, then the gate.
+                    fused_net.conv(y, w2, block.conv2, (h, w), z, relu=False)
+                    worst = max(worst, bf16_steps(z, plain_layer(
+                        y_nchw, block.conv2).permute(0, 2, 3, 1).reshape(
+                            m, -1)))
+                    gated = torch.empty_like(x_flat)
+                    fused_net.se(x_flat, z, block, (h, w), gated)
+                    want_g = torch.relu(fused_net._gate_plain(
+                        x_nchw, z.view(bsz, h, w, -1).permute(0, 3, 1, 2),
+                        block.se))
+                    worst = max(worst, bf16_steps(
+                        gated, want_g.permute(0, 2, 3, 1).reshape(m, -1)))
+                    x_flat = gated
+                    continue
                 if block.proj is None:
                     fused_net.conv(y, w2, block.conv2, (h, w), z,
                                    residual=x_flat)
@@ -3659,7 +3765,7 @@ def fused_net_phase(device) -> dict:
         check(worst <= FUSED_LAYER_STEPS, f"{label}: a conv layer is "
               f"{worst:.2f} bf16 steps from its plain version")
         check(head_err <= FUSED_HEAD_RTOL, f"{label}: heads {head_err}")
-        if case_net is az:
+        if case_net is az or case_net is se:
             # Logits grow with the identity tower's depth: the logit gap is
             # held relative to the plain logits' RMS, the value gap as is.
             rms = plain[0].float().square().mean().sqrt().item()
@@ -3672,9 +3778,12 @@ def fused_net_phase(device) -> dict:
                 f"{gaps[0][0]:.4e} of their RMS {rms:.4f}, value max-abs "
                 f"{gaps[0][1]:.4e}; module path vs plain {gaps[1][0]:.4e}, "
                 f"{gaps[1][1]:.4e}")
-            check(gaps[0][0] <= FUSED_IDENTITY_LOGIT_LIMIT,
+            limits = ((FUSED_IDENTITY_LOGIT_LIMIT, FUSED_IDENTITY_VALUE_LIMIT)
+                      if case_net is az else
+                      (FUSED_SE_LOGIT_LIMIT, FUSED_SE_VALUE_LIMIT))
+            check(gaps[0][0] <= limits[0],
                   f"{label}: forward logits {gaps[0][0]}")
-            check(gaps[0][1] <= FUSED_IDENTITY_VALUE_LIMIT,
+            check(gaps[0][1] <= limits[1],
                   f"{label}: forward value {gaps[0][1]}")
             continue
         out_err, module_err = gap(got, plain), gap(module, plain)
@@ -3697,6 +3806,33 @@ def fused_net_phase(device) -> dict:
           f"19 x 256 captured search: {az_counts}")
     log(f"fused net: the 19 x 256 identity net's captured search (256 games, "
         f"8 sims): launches {az_counts}")
+
+    # The SE net's captured search: one se launch a block a forward.
+    se_search = FusedConnectNSearchV2(env, MCTSConfig(simulations=8, **NOISE))
+    with FusedNetCount() as count:
+        se_search.search_root_stats(az_states, make_evaluate_fn(se),
+                                    torch.Generator(device=device)
+                                    .manual_seed(5), 8)
+    se_counts = count.check("SE 20 x 256 captured search", len(se.blocks),
+                            se=len(se.blocks))
+    check(count.recorded == 1 and count.noise == 1,
+          f"SE 20 x 256 captured search: {se_counts}")
+    log(f"fused net: the SE 20 x 256 net's captured search (256 games, 8 "
+        f"sims): launches {se_counts}")
+    # Both tiles of its block convs: 192 cells at 256 filters, 128 at 128;
+    # two forwards bit-equal.
+    se_tiles = {}
+    for filters in (256, 128):
+        got = se_forward_check(device, 256, filters)
+        se_tiles[filters] = got
+        log(f"fused net: SE 20 x {filters} at B=256 on {got['tile']}-cell "
+            f"tiles: {got}")
+        check(got["repeat_equal"] and got["plain_calls"] == 0
+              and got["se_launches"] == 20
+              and got["conv_launches"] == 41
+              and got["logit_gap"] <= FUSED_SE_LOGIT_LIMIT
+              and got["value_gap"] <= FUSED_SE_VALUE_LIMIT,
+              f"SE 20 x {filters} forward: {got}")
 
     # A promote between two replays of one captured search graph.
     # The promoted net: every parameter and running statistic of the c4-r5
@@ -3814,6 +3950,28 @@ def fused_net_phase(device) -> dict:
     for name, ms in sorted(az_by_name.items(), key=lambda kv: -kv[1]):
         n = az_count_by_name[name]
         log(f"  {name[:70]}: {ms / n:.4f} ms ({n} events in 5 forwards)")
+
+    # The SE 20 x 256 net at the same shape, in the same run.
+    se_obs = cases[4][2]
+    se_forward = fused_net.FusedForward(se)
+    with torch.inference_mode():
+        se_ms, se_host_ms = time_forward(se_forward, se_obs, 10)
+        se_module_ms, _ = time_forward(se, se_obs, 3)
+        _, se_by_name, se_count_by_name, _ = profiled(
+            lambda: [se_forward(se_obs) for _ in range(5)], host=False)
+    se_flops, se_bytes = fused_flops_and_bytes(se, 256, (6, 7))
+    se_bound_ms = max(se_flops / 989e12, se_bytes / HBM_BYTES_PER_S) * 1e3
+    check(se_ms < se_module_ms, f"SE 20 x 256 B=256: fused {se_ms:.4f} ms, "
+          f"module path {se_module_ms:.4f} ms")
+    log(f"fused net at B=256 (SE 20 x 256): device {se_ms:.4f} ms a forward "
+        f"(host enqueue {se_host_ms:.4f} ms; the 19 x 256 identity net "
+        f"{az_ms:.4f} ms), bound {se_bound_ms:.4f} ms "
+        f"({se_flops / 1e9:.1f} GFLOP, {se_bytes / 1e6:.1f} MB), "
+        f"{se_flops / se_ms / 1e9:.1f} TFLOP/s; module path (cuDNN) "
+        f"{se_module_ms:.4f} ms")
+    for name, ms in sorted(se_by_name.items(), key=lambda kv: -kv[1]):
+        n = se_count_by_name[name]
+        log(f"  {name[:70]}: {ms / n:.4f} ms ({n} events in 5 forwards)")
     return {
         "name": "fused_net_forward",
         "route": "cuda",
@@ -3831,6 +3989,10 @@ def fused_net_phase(device) -> dict:
         "az19x256_b256": {"ms": az_ms, "bound_ms": az_bound_ms,
                           "library_ms": az_module_ms,
                           "launches_captured_search": az_counts},
+        "se20x256_b256": {"ms": se_ms, "bound_ms": se_bound_ms,
+                          "library_ms": se_module_ms,
+                          "launches_captured_search": se_counts,
+                          "tiles": se_tiles},
         "convs_us": conv_us,
     }
 

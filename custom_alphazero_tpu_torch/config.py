@@ -4,9 +4,10 @@ Own copies of the JAX package's config dataclasses, with the same fields and
 defaults, the same dotted-key overrides and the same JSON snapshot, so a
 configuration file (e.g. ``artifacts/c4-r5/config.json``) reads into either
 package and writes back identically. Field comments live with the JAX
-originals (custom_alphazero_tpu/config.py). One field is the port's own:
-``model.residual_projection`` (default True, the JAX net's block), which the
-port's snapshot adds and the JAX package's ``from_json`` passes over.
+originals (custom_alphazero_tpu/config.py). Two fields are the port's own:
+``model.residual_projection`` (default True, the JAX net's block) and
+``model.se_ratio`` (default 0, no squeeze-excitation gate), which the port's
+snapshot adds and the JAX package's ``from_json`` passes over.
 """
 
 from __future__ import annotations
@@ -81,6 +82,11 @@ class ModelConfig:
     # input (the JAX net's block); False adds the input itself, AlphaGo
     # Zero's and AlphaZero's block.
     residual_projection: bool = True
+    # Port-only: > 0 gives each residual block a squeeze-excitation gate
+    # (Leela Chess Zero's: two dense layers through filters / se_ratio
+    # units, a sigmoid scale and an offset a channel) on its second conv's
+    # output; 0 has none. Only with residual_projection=False.
+    se_ratio: int = 0
 
 
 @dataclass(frozen=True)
@@ -193,6 +199,17 @@ def validate(config: Config) -> Config:
         raise ValueError(
             f"model.lr_boundaries must be strictly increasing: {m.lr_boundaries}"
         )
+    if m.se_ratio < 0:
+        raise ValueError(f"model.se_ratio={m.se_ratio} must be >= 0 (0: no "
+                         "squeeze-excitation gate)")
+    if m.se_ratio and m.residual_projection:
+        raise ValueError(
+            "model.se_ratio > 0 gates identity-skip blocks: it needs "
+            "model.residual_projection=false")
+    if m.se_ratio and m.filters % m.se_ratio:
+        raise ValueError(
+            f"model.se_ratio={m.se_ratio} does not divide model.filters="
+            f"{m.filters}")
     if config.arena.solver_score_veto and not (
         config.arena.evaluate_with_solver and config.game == "connect_n"
     ):

@@ -3,7 +3,7 @@
 // Replaces no TPU kernel: the JAX package leaves the net to XLA, which fuses
 // each layer's BatchNorm, bias, add and ReLU into the convolution on the
 // TPU. On the card the module path ran each of those as a separate pass over
-// the activation. Four kernels:
+// the activation. Five kernels:
 //
 // - pack: every trunk conv weight, read from the live float32 parameters
 //   through a table of addresses and rounded to bf16 (as autocast rounds
@@ -28,14 +28,29 @@
 //   float32 from the live parameters and running statistics, applies the
 //   conv's bias and eval-mode BatchNorm as one scale and offset a channel,
 //   adds the skip, applies ReLU and writes bf16 (one rounding a layer)
-//   through shared memory in 16-byte chunks. ops/fused_net.py's
-//   ``conv_plan`` picks the tile, 128 or 192 cells by 128 filters, from the
-//   GEMM's shape.
+//   through shared memory in 16-byte chunks. In a block with a
+//   squeeze-excitation gate the second conv's epilogue stops after the
+//   BatchNorm (kLinear: no skip, no ReLU) and se_kernel finishes the block.
+//   ops/fused_net.py's ``conv_plan`` picks the tile, 128 or 192 cells by
+//   128 filters, from the GEMM's shape.
 // - conv_kernel: the stem, which reads the float32 observations over the
 //   flat K = taps x C_in and rounds them to bf16 on load: every thread
 //   gathers a run of K of one cell and a share of the weight (masked
 //   cp.async), and the block meets at a barrier each K step; the same
 //   epilogue, without a skip.
+// - se_kernel: a block's squeeze-excitation gate and the rest of the
+//   block, once a block: out = relu(x + sigmoid(g) * y + o), g and o the
+//   two halves of dense2(relu(dense1(mean of y over the board))), y the
+//   second conv's bf16 output, x the block input. The mean over a
+//   position's cells needs every cell of it, and a position's cells
+//   straddle the conv's tiles, so the conv's epilogue cannot finish the
+//   block. One CTA takes two positions (half the threads each): each
+//   thread sums a 16-byte chunk of channels over a fixed set of cells, the
+//   partial sums meet in shared memory in a fixed order (no atomics: a
+//   forward repeats bit for bit), the dense layers read the live float32
+//   weights and biases, copied to shared memory while the board is summed,
+//   and the threads write the output in bf16 from the chunks of y and x
+//   they hold in registers since their first load: one read of each.
 // - heads: the policy and value 1x1 convs (a few filters each) over the
 //   trunk's bf16 output, one thread a board cell, with their BatchNorm and
 //   ReLU, written in float32 for the dense layers.
@@ -50,7 +65,11 @@
 // TMA, builds without the A or without the B loads ran no faster at the
 // 19 x 256 shape: what keeps conv_kernel_ws at 40-50% of the peak is each
 // CTA's fixed cost (the pipeline's fill, the epilogue, about 5 us a round
-// of CTAs) and the last round of tiles, which ``conv_plan`` weighs.
+// of CTAs) and the last round of tiles, which ``conv_plan`` weighs. A gated
+// block adds se_kernel, about 9 us at B=256 with 256 filters beside the
+// block's two 24 us convs: one CTA a SM, bound by the L2 traffic of every
+// CTA's copy of the gate's float32 weights beside the activations, and by
+// its phases in turn (loads, dense layers, output).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -174,8 +193,9 @@ __host__ __device__ __forceinline__ int padded_depth(int depth) {
 }
 
 // How a block conv's output takes a residual block's skip path (the entry
-// point's ``residual``).
-enum Skip { kNoSkip = 0, kProjection = 1, kIdentity = 2 };
+// point's ``residual``); kLinear: neither a skip nor ReLU, the second conv
+// of a block whose squeeze-excitation gate se_kernel applies.
+enum Skip { kNoSkip = 0, kProjection = 1, kIdentity = 2, kLinear = 3 };
 
 // ---------------------------------------------------------------------------
 // The stem (conv_kernel): float32 observations x (B*H*W rows of C
@@ -567,8 +587,8 @@ struct Maps {
 };
 
 // One (BM x kBN) tile of a block conv's output, relu(bn(conv(x)) + skip),
-// skip bn_r(proj(r)) (kProjection), r itself (kIdentity) or nothing, fed by
-// a producer warp.
+// skip bn_r(proj(r)) (kProjection), r itself (kIdentity) or nothing; or
+// bn(conv(x)) alone (kLinear); fed by a producer warp.
 template <class P>
 __global__ void __launch_bounds__(P::kThreads)
     conv_kernel_ws(const __grid_constant__ Maps maps, int C, int ks,
@@ -714,8 +734,12 @@ __global__ void __launch_bounds__(P::kThreads)
           v0 += rv.x;
           v1 += rv.y;
         }
+        if constexpr (P::SKIP != kLinear) {
+          v0 = fmaxf(v0, 0.0f);
+          v1 = fmaxf(v1, 0.0f);
+        }
         *reinterpret_cast<__nv_bfloat162*>(staged + row * P::kRow + f) =
-            __floats2bfloat162_rn(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
+            __floats2bfloat162_rn(v0, v1);
       }
     }
     asm volatile("bar.sync 1, %0;\n" ::"n"(P::kConsumers) : "memory");
@@ -856,8 +880,267 @@ cudaError_t launch_ws_skip(const bf16* x, const bf16* w, int C, int ks,
     case kIdentity:
       return launch_ws<Pipe<WG, kIdentity>>(x, w, C, ks, bn, r, wr, rbn, out,
                                             M, H, W, N, eps, s);
+    case kLinear:
+      return launch_ws<Pipe<WG, kLinear>>(x, w, C, ks, bn, r, wr, rbn, out, M,
+                                          H, W, N, eps, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// se_kernel: a block's squeeze-excitation gate over (B, HW cells, C) bf16
+// rows, kSePositions positions a CTA, kSeHalf threads a position. A thread
+// owns one 16-byte chunk q of a cell's C channels (C / 8 chunks, which
+// divide kSeHalf) and the cells g, g + G, ... (G = kSeHalf / (C / 8)); it
+// keeps the first kSeHeld of them, of y and of x, in registers from their
+// one load, all in flight at once, to the output. The dense layers' weights,
+// W1 (R, C) and W2 (2C, R) in torch's layout (R a multiple of 4), and
+// biases are copied to shared memory by TMA bulk copies meanwhile; the
+// dense layers read them in 16-byte vectors, each weight once for both
+// positions.
+constexpr int kSeHalf = 128;
+constexpr int kSePositions = 2;
+constexpr int kSeThreads = kSeHalf * kSePositions;
+constexpr int kSeHeld = 12;
+
+// The shared floats of a CTA: the copy's mbarrier (4 floats), W1, W2, b1
+// and b2, then the partial sums (G rows of C a position), the means, the
+// hidden units, the scales and the offsets.
+inline int se_smem_floats(int C, int R) {
+  const int G = kSeHalf / (C / 8);
+  return 4 + 3 * R * C + R + 2 * C + kSePositions * (G * C + 3 * C + R);
+}
+
+// ``bytes`` (a multiple of 16) from global to shared memory in one TMA
+// bulk copy, completing on ``bar``.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void se_add(float (&sum)[8], const uint4& raw) {
+  const bf16* v = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) sum[i] += __bfloat162float(v[i]);
+}
+
+// relu((x + scale * y) + offset) of one 16-byte chunk, in bf16.
+__device__ __forceinline__ uint4 se_out(const uint4& xr, const uint4& yr,
+                                        const float (&fs)[8],
+                                        const float (&fo)[8]) {
+  const __nv_bfloat162* xv = reinterpret_cast<const __nv_bfloat162*>(&xr);
+  const __nv_bfloat162* yv = reinterpret_cast<const __nv_bfloat162*>(&yr);
+  uint4 res;
+  __nv_bfloat162* rv = reinterpret_cast<__nv_bfloat162*>(&res);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 a = __bfloat1622float2(xv[i]);
+    const float2 b = __bfloat1622float2(yv[i]);
+    const float v0 = a.x + fs[2 * i] * b.x + fo[2 * i];
+    const float v1 = a.y + fs[2 * i + 1] * b.y + fo[2 * i + 1];
+    rv[i] = __floats2bfloat162_rn(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
+  }
+  return res;
+}
+
+__global__ void __launch_bounds__(kSeThreads)
+    se_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y, int B,
+              int HW, int C, int R, const float* __restrict__ w1,
+              const float* __restrict__ b1, const float* __restrict__ w2,
+              const float* __restrict__ b2, bf16* __restrict__ out) {
+  static_assert(kSePositions == 2, "the dense layers take two positions");
+  extern __shared__ __align__(16) float s_se[];
+  const int Q = C / 8;
+  const int G = kSeHalf / Q;
+  float* s_w1 = s_se + 4;                       // [R][C]
+  float* s_w2 = s_w1 + R * C;                   // [2C][R]
+  float* s_b1 = s_w2 + 2 * C * R;               // [R]
+  float* s_b2 = s_b1 + R;                       // [2C]
+  float* part = s_b2 + 2 * C;                   // [position][G][C]
+  float* mean = part + kSePositions * G * C;    // [position][C]
+  float* hidden = mean + kSePositions * C;      // [position][R]
+  float* scale = hidden + kSePositions * R;     // [position][C]
+  float* offset = scale + kSePositions * C;     // [position][C]
+  const uint32_t bar = smem_addr(s_se);
+  const int tid = threadIdx.x;
+  const int half = tid / kSeHalf;
+  const int t = tid % kSeHalf;
+  const int first = blockIdx.x * kSePositions;
+  const int count = B - first < kSePositions ? B - first : kSePositions;
+  const bool live = half < count;
+  const int q = t % Q;
+  const int g = t / Q;
+  // The thread's chunk of cell g + k G is at at0 + k * step.
+  const long long at0 = (static_cast<long long>(first + half) * HW + g) * C +
+                        8 * q;
+  const long long step = static_cast<long long>(G) * C;
+
+  // The weights' copy, in flight while the board is summed.
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar, 4 * (3 * R * C + R + 2 * C));
+    bulk_copy(smem_addr(s_w1), w1, 4 * R * C, bar);
+    bulk_copy(smem_addr(s_w2), w2, 8 * R * C, bar);
+    bulk_copy(smem_addr(s_b1), b1, 4 * R, bar);
+    bulk_copy(smem_addr(s_b2), b2, 8 * C, bar);
+  }
+
+  // Squeeze: each thread's chunk summed over its cells in order (the held
+  // ones' loads all in flight at once), then the G partial sums of a
+  // channel in order.
+  uint4 yk[kSeHeld], xk[kSeHeld];
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < kSeHeld; ++k)
+      if (g + k * G < HW) {
+        yk[k] = *reinterpret_cast<const uint4*>(y + at0 + k * step);
+        xk[k] = *reinterpret_cast<const uint4*>(x + at0 + k * step);
+      }
+    float sum[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sum[i] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kSeHeld; ++k)
+      if (g + k * G < HW) se_add(sum, yk[k]);
+    for (int k = kSeHeld; g + k * G < HW; ++k)
+      se_add(sum, *reinterpret_cast<const uint4*>(y + at0 + k * step));
+#pragma unroll
+    for (int i = 0; i < 8; ++i) part[(half * G + g) * C + 8 * q + i] = sum[i];
+  }
+  __syncthreads();
+  if (live) {
+    for (int c = t; c < C; c += kSeHalf) {
+      float s = 0.0f;
+      for (int j = 0; j < G; ++j) s += part[(half * G + j) * C + c];
+      mean[half * C + c] = s / static_cast<float>(HW);
+    }
+  }
+  mbar_wait(bar, 0);
+  __syncthreads();
+
+  // Excitation, the first dense layer: a warp four outputs j at a time,
+  // for both positions, its lanes across the channels four at a time; each
+  // sum by a butterfly (lane 0's order is fixed). A position past the batch
+  // reads the other's means and writes nothing.
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const float4* m0 = reinterpret_cast<const float4*>(mean);
+  const float4* m1 =
+      reinterpret_cast<const float4*>(mean + (count > 1 ? C : 0));
+  for (int j0 = 4 * warp; j0 < R; j0 += 4 * (kSeThreads / 32)) {
+    float s[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+    const float4* w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = reinterpret_cast<const float4*>(
+          s_w1 + (j0 + i < R ? j0 + i : j0) * C);
+    for (int c = lane; c < C / 4; c += 32) {
+      const float4 a0 = m0[c];
+      const float4 a1 = m1[c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 wc = w[i][c];
+        s[0][i] += a0.x * wc.x;
+        s[0][i] += a0.y * wc.y;
+        s[0][i] += a0.z * wc.z;
+        s[0][i] += a0.w * wc.w;
+        s[1][i] += a1.x * wc.x;
+        s[1][i] += a1.y * wc.y;
+        s[1][i] += a1.z * wc.z;
+        s[1][i] += a1.w * wc.w;
+      }
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[0][i] += __shfl_xor_sync(0xffffffffu, s[0][i], d);
+        s[1][i] += __shfl_xor_sync(0xffffffffu, s[1][i], d);
+      }
+    }
+    if (lane < count * 4) {  // lane p * 4 + i writes output j0 + i of p
+      const int p = lane / 4;
+      const int i = lane % 4;
+      if (j0 + i < R) {
+        float v = s[0][0];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (k == lane) v = s[k / 4][k % 4];
+        hidden[p * R + j0 + i] = fmaxf(v + s_b1[j0 + i], 0.0f);
+      }
+    }
+  }
+  __syncthreads();
+  // The second: a thread an output row u of W2, for both positions, the
+  // scale's sigmoid or the offset. A thread reads its row four columns at
+  // a time from column 4 (u % (R / 4)) on, so that a quarter warp's reads
+  // fall on distinct banks.
+  const float4* h0 = reinterpret_cast<const float4*>(hidden);
+  const float4* h1 = reinterpret_cast<const float4*>(hidden +
+                                                     (count > 1 ? R : 0));
+  for (int u = tid; u < 2 * C; u += kSeThreads) {
+    const float4* row = reinterpret_cast<const float4*>(s_w2 + u * R);
+    float a0 = 0.0f, a1 = 0.0f;
+    int c = u % (R / 4);
+#pragma unroll 4
+    for (int k = 0; k < R / 4; ++k) {
+      const float4 wv = row[c];
+      const float4 x0 = h0[c];
+      const float4 x1 = h1[c];
+      a0 += x0.x * wv.x;
+      a0 += x0.y * wv.y;
+      a0 += x0.z * wv.z;
+      a0 += x0.w * wv.w;
+      a1 += x1.x * wv.x;
+      a1 += x1.y * wv.y;
+      a1 += x1.z * wv.z;
+      a1 += x1.w * wv.w;
+      c = c + 1 == R / 4 ? 0 : c + 1;
+    }
+    const float bias = s_b2[u];
+#pragma unroll
+    for (int p = 0; p < kSePositions; ++p) {
+      if (p >= count) break;
+      const float v = (p == 0 ? a0 : a1) + bias;
+      if (u < C)
+        scale[p * C + u] = 1.0f / (1.0f + expf(-v));
+      else
+        offset[p * C + u - C] = v;
+    }
+  }
+  __syncthreads();
+  if (!live) return;
+
+  // The block's output, from the held chunks, then the rest's loads.
+  float fs[8], fo[8];
+#pragma unroll
+  for (int i = 0; i < 8; i += 4) {
+    const float4 sv =
+        *reinterpret_cast<const float4*>(scale + half * C + 8 * q + i);
+    const float4 ov =
+        *reinterpret_cast<const float4*>(offset + half * C + 8 * q + i);
+    fs[i] = sv.x;
+    fs[i + 1] = sv.y;
+    fs[i + 2] = sv.z;
+    fs[i + 3] = sv.w;
+    fo[i] = ov.x;
+    fo[i + 1] = ov.y;
+    fo[i + 2] = ov.z;
+    fo[i + 3] = ov.w;
+  }
+#pragma unroll
+  for (int k = 0; k < kSeHeld; ++k)
+    if (g + k * G < HW)
+      *reinterpret_cast<uint4*>(out + at0 + k * step) =
+          se_out(xk[k], yk[k], fs, fo);
+  for (int k = kSeHeld; g + k * G < HW; ++k)
+    *reinterpret_cast<uint4*>(out + at0 + k * step) =
+        se_out(*reinterpret_cast<const uint4*>(x + at0 + k * step),
+               *reinterpret_cast<const uint4*>(y + at0 + k * step), fs, fo);
 }
 
 // pack: table rows (weight address, offset in out, C_out, C_in, taps) of
@@ -991,7 +1274,8 @@ int fused_net_conv(const float* x, const bf16* w, int C, int ks,
 // bf16, w its packed (N, ks*ks*C) weight, C and N multiples of 64.
 // residual (a Skip): add to relu's input the 1x1 projection of r ((M, N)
 // bf16, packed weight wr (N, N)) with its BatchNorm (1; bm 128 only), or r
-// itself (2; wr and rbn unread). bm: the tile's cells, 128 or 192.
+// itself (2; wr and rbn unread); 3: no skip and no ReLU. bm: the tile's
+// cells, 128 or 192.
 int fused_net_conv_pipelined(
     const bf16* x, const bf16* w, int C, int ks, const float* bias,
     const float* gamma, const float* beta, const float* mean,
@@ -1000,7 +1284,7 @@ int fused_net_conv_pipelined(
     const float* rvar, int residual, bf16* out, int M, int H, int W, int N,
     float eps, int bm, void* stream) {
   if (C % kBK != 0 || N % kBK != 0 || residual < kNoSkip ||
-      residual > kIdentity)
+      residual > kLinear)
     return static_cast<int>(cudaErrorInvalidValue);
   const BatchNormArgs bn{bias, gamma, beta, mean, var};
   const BatchNormArgs rbn{rbias, rgamma, rbeta, rmean, rvar};
@@ -1013,6 +1297,37 @@ int fused_net_conv_pipelined(
     err = launch_ws_skip<3>(x, w, C, ks, bn, r, wr, rbn, residual, out, M, H,
                             W, N, eps, s);
   return static_cast<int>(err);
+}
+
+// A residual block's squeeze-excitation gate and its output: x (the block
+// input) and y (its second conv's output, kLinear) are (B * HW, C) bf16,
+// out gets relu(x + sigmoid(g) * y + o), [g | o] = dense2(relu(dense1(the
+// mean of y over each position's HW cells))); w1 (R, C), b1 (R), w2 (2C,
+// R), b2 (2C) float32, torch's Linear layout, each 16-byte aligned.
+// C a multiple of 8 dividing 1024, R a multiple of 4; both weights and the
+// sums in one SM's shared memory (se_smem_floats).
+int fused_net_se(const bf16* x, const bf16* y, int B, int HW, int C, int R,
+                 const float* w1, const float* b1, const float* w2,
+                 const float* b2, bf16* out, void* stream) {
+  if (B < 1 || HW < 1 || R < 4 || R % 4 != 0 || C < 8 || C % 8 != 0 ||
+      C > 8 * kSeHalf ||
+      kSeHalf % (C / 8) != 0 || reinterpret_cast<uintptr_t>(w1) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w2) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(b1) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(b2) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = se_smem_floats(C, R) * static_cast<int>(sizeof(float));
+  static int sized = 0;  // the dynamic shared memory allowed so far
+  if (bytes > 48 * 1024 && bytes > sized) {
+    cudaError_t err = cudaFuncSetAttribute(
+        se_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = bytes;
+  }
+  se_kernel<<<(B + kSePositions - 1) / kSePositions, kSeThreads, bytes,
+              static_cast<cudaStream_t>(stream)>>>(x, y, B, HW, C, R, w1, b1,
+                                                   w2, b2, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The policy (P filters) and value (V filters) 1x1 convs of the (M, C) bf16

@@ -13,7 +13,10 @@ io/checkpoint.py reads from disk without JAX):
   dense, Dense_1 / Dense_2 the value MLP. ResidualBlock_i holds conv1,
   conv2 and the projection as ConvBlock_0, _1 and _2; a net without the
   projection (``residual_projection=False``, the port's own) has no
-  ConvBlock_2 in its blocks, nor in its statistics and momentum.
+  ConvBlock_2 in its blocks, nor in its statistics and momentum. A block
+  with a squeeze-excitation gate (``se_ratio > 0``, the port's own) holds
+  its two dense layers as SqueezeExcite_0/Dense_0 and Dense_1, in the
+  params and the momentum (they have no statistics).
 - The optimizer state of ``optax.sgd(schedule, momentum)`` is the tuple
   ``(TraceState(trace), ScaleByScheduleState(count))``, serialised as
   ``{"0": {"trace": <params-shaped tree>}, "1": {"count": int32}}``; with
@@ -64,15 +67,24 @@ def _conv_blocks(net: PolicyValueNet) -> Iterator[Tuple[ConvBlock, tuple]]:
     yield net.value_conv, ("ConvBlock_2",)
 
 
+def _dense(linear: torch.nn.Linear, path: Tuple[str, ...]):
+    yield path + ("kernel",), linear.weight, "dense"
+    yield path + ("bias",), linear.bias, "vec"
+
+
 def _param_layout(net: PolicyValueNet):
     """(Flax path, torch parameter, kind) of every parameter."""
     for block, path in _conv_blocks(net):
         yield from _conv_block(block, path)
+    for i, block in enumerate(net.blocks):
+        if block.se is not None:
+            gate = (f"ResidualBlock_{i}", "SqueezeExcite_0")
+            yield from _dense(block.se.dense1, gate + ("Dense_0",))
+            yield from _dense(block.se.dense2, gate + ("Dense_1",))
     for name, linear in (("Dense_0", net.policy_dense),
                          ("Dense_1", net.value_dense1),
                          ("Dense_2", net.value_dense2)):
-        yield (name, "kernel"), linear.weight, "dense"
-        yield (name, "bias"), linear.bias, "vec"
+        yield from _dense(linear, (name,))
 
 
 def _stats_layout(net: PolicyValueNet):
@@ -105,15 +117,21 @@ def load_jax_variables(net: PolicyValueNet, params: Mapping[str, Any],
                        batch_stats: Mapping[str, Any]) -> None:
     """Fill ``net``'s parameters and running statistics, in place. Raises
     ValueError where a residual block of ``params`` has a projection
-    (ConvBlock_2) and ``net``'s has none, or the reverse."""
+    (ConvBlock_2) or a squeeze-excitation gate (SqueezeExcite_0) and
+    ``net``'s has none, or the reverse."""
     for i, block in enumerate(net.blocks):
-        saved = "ConvBlock_2" in params.get(f"ResidualBlock_{i}", {})
-        if saved != (block.proj is not None):
-            raise ValueError(
-                f"ResidualBlock_{i}: the variables {'have' if saved else 'lack'}"
-                " a projection (ConvBlock_2) and the net's block "
-                f"{'lacks' if saved else 'has'} one (residual_projection="
-                f"{block.proj is not None})")
+        saved = params.get(f"ResidualBlock_{i}", {})
+        for key, what, have, option in (
+                ("ConvBlock_2", "a projection", block.proj is not None,
+                 f"residual_projection={block.proj is not None}"),
+                ("SqueezeExcite_0", "a squeeze-excitation gate",
+                 block.se is not None, "se_ratio="
+                 f"{0 if block.se is None else net.cfg.se_ratio}")):
+            if (key in saved) != have:
+                raise ValueError(
+                    f"ResidualBlock_{i}: the variables "
+                    f"{'lack' if have else 'have'} {what} ({key}) and the "
+                    f"net's block {'has' if have else 'lacks'} one ({option})")
     with torch.no_grad():
         for layout, tree in ((_param_layout(net), params),
                              (_stats_layout(net), batch_stats)):

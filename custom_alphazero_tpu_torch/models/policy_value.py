@@ -8,6 +8,9 @@ flatten -> dense to logits) and a value head (1x1 conv, 1 filter -> flatten
 ``cfg.residual_projection=False`` (the port's own option) drops the
 projection: each block adds its input itself, as AlphaGo Zero's and
 AlphaZero's blocks do (Silver et al. 2017, 2018, Methods).
+``cfg.se_ratio > 0`` (the port's own, identity blocks only) gates each
+block's second conv output with Leela Chess Zero's squeeze-excitation
+(``SqueezeExcite``) before the add.
 
 Input is NHWC like the JAX net, and both heads flatten in NHWC order so the
 Flax dense kernels carry over unchanged (models/convert.py). ``BatchNorm``
@@ -124,19 +127,44 @@ class ConvBlock(nn.Module):
         return torch.relu(x) if activate else x
 
 
+class SqueezeExcite(nn.Module):
+    """Leela Chess Zero's squeeze-excitation (lczero-training's
+    ``squeeze_excitation``; Hu et al., arXiv 1709.01507, with a learned
+    offset): the mean of y (NCHW) over the board, ``dense1`` to
+    filters / ratio units and relu, ``dense2`` to 2 x filters, whose first
+    half g scales y through a sigmoid and second half o is added:
+    sigmoid(g) * y + o, per channel."""
+
+    def __init__(self, filters: int, ratio: int):
+        super().__init__()
+        self.dense1 = nn.Linear(filters, filters // ratio)
+        self.dense2 = nn.Linear(filters // ratio, 2 * filters)
+
+    def forward(self, y):
+        z = torch.relu(self.dense1(y.mean(dim=(2, 3))))
+        g, o = self.dense2(z).chunk(2, dim=1)
+        return torch.sigmoid(g)[:, :, None, None] * y + o[:, :, None, None]
+
+
 class ResidualBlock(nn.Module):
     """Two 3x3 convs + the block input, add, relu; with ``projection`` the
-    input goes through a 1x1 conv->BN first (``proj``, else None)."""
+    input goes through a 1x1 conv->BN first (``proj``, else None); with
+    ``se_ratio`` > 0 the second conv's output goes through a
+    squeeze-excitation gate first (``se``, else None)."""
 
-    def __init__(self, filters: int, projection: bool = True):
+    def __init__(self, filters: int, projection: bool = True,
+                 se_ratio: int = 0):
         super().__init__()
         self.conv1 = ConvBlock(filters, filters)
         self.conv2 = ConvBlock(filters, filters)
         self.proj = (ConvBlock(filters, filters, kernel=1) if projection
                      else None)
+        self.se = SqueezeExcite(filters, se_ratio) if se_ratio else None
 
     def forward(self, x):
         y = self.conv2(self.conv1(x), activate=False)
+        if self.se is not None:
+            y = self.se(y)
         skip = x if self.proj is None else self.proj(x, activate=False)
         return torch.relu(skip + y)
 
@@ -153,7 +181,8 @@ class PolicyValueNet(nn.Module):
         h, w = board_hw
         self.stem = ConvBlock(in_channels, cfg.filters)
         self.blocks = nn.ModuleList(
-            [ResidualBlock(cfg.filters, cfg.residual_projection)
+            [ResidualBlock(cfg.filters, cfg.residual_projection,
+                           cfg.se_ratio)
              for _ in range(cfg.depth)]
         )
         self.policy_conv = ConvBlock(cfg.filters, cfg.policy_filters, 1)

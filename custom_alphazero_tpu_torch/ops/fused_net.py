@@ -4,8 +4,9 @@
 ``PolicyValueNet`` (models/policy_value.py) whose filters are a multiple
 of K_STEP, with one kernel per convolution of the trunk and one for both
 head convolutions, each with the layer's conv bias, eval-mode BatchNorm,
-residual skip and ReLU in its epilogue (csrc/fused_net.cu, built with nvcc
-by ``ops/_build.py`` on first use and bound through ctypes):
+residual skip and ReLU in its epilogue, and in a net with
+squeeze-excitation gates one more kernel a block (csrc/fused_net.cu, built
+with nvcc by ``ops/_build.py`` on first use and bound through ctypes):
 
 - ``pack``: one launch a forward rounds every trunk conv weight, from the
   live float32 parameters, to bf16 (as autocast rounds them) into one
@@ -26,7 +27,15 @@ by ``ops/_build.py`` on first use and bound through ctypes):
   input, its own BatchNorm) or, in a block without one
   (``residual_projection=False``), the block input's bf16 tile itself;
   then ReLU, and writes bf16: one rounding a layer, where the module path
-  rounds after the conv, the BatchNorm and the add;
+  rounds after the conv, the BatchNorm and the add. In a block with a
+  squeeze-excitation gate (``se_ratio`` > 0) the second conv's epilogue
+  stops after the BatchNorm (no skip, no ReLU) and writes bf16;
+- ``se``: such a block's gate and the rest of the block, once a block: the
+  mean of the second conv's output over each position's cells (summed in a
+  fixed order, so a forward repeats bit for bit), the gate's two dense
+  layers from their live float32 weights, then relu(x + sigmoid(g) * y + o)
+  in float32 over the block input x, written bf16. A position's cells
+  straddle the conv's tiles, so the conv's epilogue cannot take the mean;
 - ``heads``: the policy conv (2 filters) and the value conv (1 filter) over
   the trunk's output with their BatchNorm and ReLU, written in float32.
 
@@ -76,6 +85,36 @@ K_STEP = 64
 TILE_FILTERS = 128
 # The pack kernel's tile of (C_out, K) elements.
 PACK_TILE = 32
+# The widest net whose gates the se kernel takes: 128 threads a position,
+# one 16-byte chunk of 8 channels each (csrc/fused_net.cu's kSeHalf); the
+# filters divide it.
+SE_MAX_FILTERS = 1024
+# The shared memory an H100's SM gives one CTA, which holds both of a
+# gate's dense weights and its sums (``se_smem_bytes``).
+SE_SMEM_LIMIT = 227 * 1024
+
+
+def se_smem_bytes(filters: int, hidden: int) -> int:
+    """The se kernel's shared memory (csrc/fused_net.cu's
+    ``se_smem_floats``): the weights' copy barrier (16 bytes), W1 and W2,
+    3 x hidden x filters floats, their biases, then two positions' partial
+    sums, means, scales, offsets and hidden units."""
+    rows = 128 // (filters // 8)
+    return 4 * (4 + 3 * hidden * filters + hidden + 2 * filters
+                + 2 * (rows * filters + 3 * filters + hidden))
+
+
+def se_fits(net: PolicyValueNet) -> bool:
+    """Whether the se kernel takes ``net``'s gates (a net without gates:
+    True): filters that divide SE_MAX_FILTERS, hidden units a multiple of 4
+    (its dense layers read 16-byte vectors), weights within
+    SE_SMEM_LIMIT."""
+    filters, ratio = net.cfg.filters, net.cfg.se_ratio
+    if not ratio:
+        return True
+    hidden = filters // ratio
+    return (SE_MAX_FILTERS % filters == 0 and hidden % 4 == 0
+            and se_smem_bytes(filters, hidden) <= SE_SMEM_LIMIT)
 
 
 def applies(net: PolicyValueNet, obs: torch.Tensor) -> bool:
@@ -83,17 +122,22 @@ def applies(net: PolicyValueNet, obs: torch.Tensor) -> bool:
     observations and a bf16 net in eval mode (its ``evaluate`` runs under
     ``torch.inference_mode``, so grad is off) whose filters are a multiple
     of K_STEP (the pipelined kernel's K steps are one tap's whole 64-channel
-    slice). Anything else (the training forward, float32 nets, CPU tensors,
-    other widths) runs ``net(obs)``."""
+    slice) and, in a net with squeeze-excitation gates, fit the ``se``
+    kernel (``se_fits``: its threads each take a 16-byte chunk of a cell's
+    channels, and an SM's shared memory holds the gate's dense weights).
+    Anything else (the training forward, float32 nets, CPU tensors, other
+    widths) runs ``net(obs)``. The gates' dense weights are read where they
+    live, at each launch, like the convs' parameters."""
     return (obs.device.type == "cuda"
             and net.cfg.compute_dtype == "bfloat16" and not net.training
-            and net.cfg.filters % K_STEP == 0)
+            and net.cfg.filters % K_STEP == 0 and se_fits(net))
 
 
 def trunk_convs(net: PolicyValueNet):
     """The trunk's ConvBlocks in the order ``pack`` lays them out: the stem,
     then conv1, conv2 and (where the block has one) proj of each residual
-    block."""
+    block. A squeeze-excitation gate (``block.se``) has no row: the ``se``
+    kernel reads its dense weights from the live parameters."""
     convs = [net.stem]
     for block in net.blocks:
         convs += [block.conv1, block.conv2]
@@ -207,11 +251,24 @@ def _dense_heads(net: PolicyValueNet, p: torch.Tensor, v: torch.Tensor):
     return logits, value
 
 
+def _gate_plain(x: torch.Tensor, y: torch.Tensor, se) -> torch.Tensor:
+    """A block's squeeze-excitation and skip before the ReLU, in float32 as
+    the ``se`` kernel computes it: x + sigmoid(g) * y + o over NCHW x and y,
+    [g | o] = dense2(relu(dense1(the mean of y over the board)))."""
+    y = y.float()
+    hidden = torch.relu(F.linear(y.mean(dim=(2, 3)), se.dense1.weight,
+                                 se.dense1.bias))
+    g, o = F.linear(hidden, se.dense2.weight, se.dense2.bias).chunk(2, dim=1)
+    return (x.float() + torch.sigmoid(g)[:, :, None, None] * y
+            + o[:, :, None, None])
+
+
 def forward_plain(net: PolicyValueNet, obs: torch.Tensor):
     """The fused forward in plain PyTorch, with the kernels' arithmetic:
     operands rounded to the net's compute dtype, float32 sums and
-    epilogues, one rounding of each trunk layer's output. A float32 net
-    rounds nothing, so its result is the module's up to float32 order."""
+    epilogues, one rounding of each trunk layer's output (and of a gated
+    block's second conv). A float32 net rounds nothing, so its result is
+    the module's up to float32 order."""
     forward_plain.calls += 1
     dtype = (torch.bfloat16 if net.cfg.compute_dtype == "bfloat16"
              else torch.float32)
@@ -221,6 +278,11 @@ def forward_plain(net: PolicyValueNet, obs: torch.Tensor):
     for block in net.blocks:
         y = torch.relu(_epilogue_plain(_conv_plain(x, block.conv1, dtype),
                                        block.conv1)).to(dtype)
+        if block.se is not None:
+            y = _epilogue_plain(_conv_plain(y, block.conv2, dtype),
+                                block.conv2).to(dtype)
+            x = torch.relu(_gate_plain(x, y, block.se)).to(dtype)
+            continue
         skip = (x.float() if block.proj is None else _epilogue_plain(
             _conv_plain(x, block.proj, dtype), block.proj))
         z = _epilogue_plain(_conv_plain(y, block.conv2, dtype),
@@ -255,8 +317,10 @@ def _lib():
             [ptr, ptr, i, i] + [ptr] * 12 + [i, ptr, i, i, i, i, f, i, ptr])
         lib.fused_net_heads.argtypes = ([ptr, i, i] + [ptr] * 6 + [i]
                                         + [ptr] * 6 + [i, f, ptr, ptr, ptr])
+        lib.fused_net_se.argtypes = [ptr, ptr, i, i, i, i] + [ptr] * 6
         for fn in (lib.fused_net_pack, lib.fused_net_conv,
-                   lib.fused_net_conv_pipelined, lib.fused_net_heads):
+                   lib.fused_net_conv_pipelined, lib.fused_net_heads,
+                   lib.fused_net_se):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -302,15 +366,17 @@ def pack(table: torch.Tensor, out: torch.Tensor, rows) -> None:
 
 def conv(x: torch.Tensor, w: torch.Tensor, block: ConvBlock, hw, out,
          residual: Union[None, torch.Tensor,
-                         Tuple[torch.Tensor, torch.Tensor, ConvBlock]] = None
-         ) -> None:
+                         Tuple[torch.Tensor, torch.Tensor, ConvBlock]] = None,
+         relu: bool = True) -> None:
     """Launch one conv layer on NHWC ``x``, (B, H, W, C_in) or its
     (M, C_in) rows, into (M, N) bf16 ``out``; ``w`` is the layer's packed
     weight (``pack_layout``). The stem (float32 ``x``, no ``residual``)
     takes its own kernel; a block conv (bf16 ``x``) the pipelined kernel on
     ``conv_plan``'s tile. ``residual``, added before the ReLU: the block
     input ((M, N) bf16) of an identity block, or (block input, its packed
-    1x1 weight, the proj ConvBlock) of a block with a projection."""
+    1x1 weight, the proj ConvBlock) of a block with a projection.
+    ``relu`` False (a block conv without ``residual``): the output stops
+    after the BatchNorm, a gated block's second conv."""
     h, w_ = hw
     cin = x.shape[-1]
     k = block.conv.kernel_size[0]
@@ -324,16 +390,17 @@ def conv(x: torch.Tensor, w: torch.Tensor, block: ConvBlock, hw, out,
         return
     launch_conv(x, w, block, hw, out, residual,
                 conv_plan(m, n, cin, k * k, _sm_count(out.device),
-                          projection=isinstance(residual, tuple)))
+                          projection=isinstance(residual, tuple)), relu)
 
 
-def launch_conv(x, w, block: ConvBlock, hw, out, residual, bm: int) -> None:
+def launch_conv(x, w, block: ConvBlock, hw, out, residual, bm: int,
+                relu: bool = True) -> None:
     """``conv``'s launch of a block conv on the pipelined kernel's tile of
     ``bm`` cells."""
     h, w_ = hw
     bn = _bn_args(block)
     if residual is None:
-        r, wr, rbn, skip = x, w, bn, 0
+        r, wr, rbn, skip = x, w, bn, 0 if relu else 3
     elif isinstance(residual, torch.Tensor):
         r, wr, rbn, skip = residual, w, bn, 2
     else:
@@ -346,6 +413,28 @@ def launch_conv(x, w, block: ConvBlock, hw, out, residual, bm: int) -> None:
         _stream(out.device)))
     conv.launches += 1
     conv.identity_launches += int(skip == 2)
+
+
+def se(x: torch.Tensor, y: torch.Tensor, block, hw, out) -> None:
+    """Launch a residual block's squeeze-excitation gate (``block.se``) and
+    the rest of the block: (M, C) bf16 ``out`` gets relu(x + sigmoid(g) *
+    y + o) of the block input ``x`` and its second conv's output ``y``,
+    both (M, C) bf16, M = B x H x W. The dense weights are read where they
+    live."""
+    gate = block.se
+    layers = (gate.dense1.weight, gate.dense1.bias, gate.dense2.weight,
+              gate.dense2.bias)
+    if any(t.dtype != torch.float32 or not t.is_contiguous()
+           or t.data_ptr() % 16 for t in layers):
+        raise ValueError("the fused forward reads contiguous, 16-byte "
+                         "aligned float32 squeeze-excitation weights")
+    m, c = x.shape
+    cells = hw[0] * hw[1]
+    _launched("se", _lib().fused_net_se(
+        x.data_ptr(), y.data_ptr(), m // cells, cells, c,
+        gate.dense1.out_features, *(t.data_ptr() for t in layers),
+        out.data_ptr(), _stream(x.device)))
+    se.launches += 1
 
 
 def heads(x: torch.Tensor, net: PolicyValueNet, p_out, v_out) -> None:
@@ -367,6 +456,7 @@ def heads(x: torch.Tensor, net: PolicyValueNet, p_out, v_out) -> None:
 pack.launches = 0
 conv.launches = 0
 conv.identity_launches = 0
+se.launches = 0
 heads.launches = 0
 
 
@@ -422,6 +512,10 @@ class FusedForward:
         if net.cfg.filters % K_STEP:
             raise ValueError(f"the fused forward takes filters that are a "
                              f"multiple of {K_STEP}; got {net.cfg.filters}")
+        if not se_fits(net):
+            raise ValueError(f"the se kernel does not take gates of "
+                             f"{net.cfg.filters} filters at ratio "
+                             f"{net.cfg.se_ratio}")
         obs = obs.contiguous()
         table, rows, length = self._table(obs.device)
         packed = torch.empty(length, dtype=torch.bfloat16, device=obs.device)
@@ -438,6 +532,11 @@ class FusedForward:
             conv(x, next(weights), block.conv1, (h, w), y)
             out = torch.empty_like(x)
             w2 = next(weights)
+            if block.se is not None:
+                conv(y, w2, block.conv2, (h, w), out, relu=False)
+                se(x, out, block, (h, w), y)  # conv1's output is spent
+                x = y
+                continue
             skip = (x if block.proj is None
                     else (x, next(weights), block.proj))
             conv(y, w2, block.conv2, (h, w), out, residual=skip)

@@ -526,3 +526,28 @@ def test_pipelined_conv_matches_plain(case):
                                           *PIPELINED_CASES[case])
     assert got["launches"] == 1
     assert got["steps_plain"] <= chip_smoke.FUSED_LAYER_STEPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filters, tile", [(256, 192), (128, 128)])
+def test_se_forward_matches_module_path_and_repeats(filters, tile):
+    """Leela Chess Zero's SE tower (20 blocks, ratio 8) at B=256 through
+    the fused forward on both tiles of its block convs: within phase 26's
+    SE bounds of the plain version, within twice them of the module path
+    (cuDNN, bf16 autocast; each sits within the bound of the plain
+    version), two forwards bit-equal, and one forward's launches counted:
+    41 convs and 20 ``se`` launches (``se.launches``), no plain call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+    got = chip_smoke.se_forward_check(torch.device("cuda"), 256, filters)
+    assert got["tile"] == tile
+    assert got["repeat_equal"], got
+    assert (got["conv_launches"], got["se_launches"],
+            got["plain_calls"]) == (41, 20, 0)
+    assert got["logit_gap"] <= chip_smoke.FUSED_SE_LOGIT_LIMIT, got
+    assert got["value_gap"] <= chip_smoke.FUSED_SE_VALUE_LIMIT, got
+    assert got["fused_module_logit_gap"] <= (
+        2 * chip_smoke.FUSED_SE_LOGIT_LIMIT), got
+    assert got["fused_module_value_gap"] <= (
+        2 * chip_smoke.FUSED_SE_VALUE_LIMIT), got

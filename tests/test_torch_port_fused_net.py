@@ -44,13 +44,14 @@ WIDE = 64
 
 def _net(shape: str, dtype: str = "bfloat16", seed: int = 0,
          projection: bool = True, depth: int = SMALL["depth"],
-         filters: int = SMALL["filters"]):
+         filters: int = SMALL["filters"], se_ratio: int = 0):
     """An eval-mode net whose every parameter and running statistic is
     drawn, so each term of the epilogues matters; ``projection`` False:
-    identity skips."""
+    identity skips; ``se_ratio``: squeeze-excitation gates."""
     actions, hw, channels = SHAPES[shape]
     cfg = ModelConfig(**dict(SMALL, depth=depth, filters=filters),
-                      compute_dtype=dtype, residual_projection=projection)
+                      compute_dtype=dtype, residual_projection=projection,
+                      se_ratio=se_ratio)
     net = PolicyValueNet(actions, cfg, channels, hw)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -263,7 +264,7 @@ def _epilogue(z, bn, n, eps):
 
 
 class _StandIns:
-    """csrc/fused_net.cu's four entry points in PyTorch, with the same
+    """csrc/fused_net.cu's five entry points in PyTorch, with the same
     arguments: pointers as integers, read and written in place. Each call
     is recorded with its shape arguments."""
 
@@ -307,7 +308,20 @@ class _StandIns:
             y = y + _epilogue(self._sums(rt, wr, N, 1, H, W, N), rbn, N, eps)
         elif residual == 2:
             y = y + _at(r, (M, N), torch.bfloat16).float()
-        _at(out, (M, N), torch.bfloat16).copy_(torch.relu(y))
+        _at(out, (M, N), torch.bfloat16).copy_(
+            y if residual == 3 else torch.relu(y))
+        return 0
+
+    def fused_net_se(self, x, y, B, HW, C, R, w1, b1, w2, b2, out, stream):
+        self.calls.append(("se", B, HW, C, R))
+        xt = _at(x, (B, HW, C), torch.bfloat16).float()
+        yt = _at(y, (B, HW, C), torch.bfloat16).float()
+        hidden = torch.relu(yt.mean(dim=1) @ _at(w1, (R, C), torch.float32).T
+                            + _at(b1, (R,), torch.float32))
+        g, o = (hidden @ _at(w2, (2 * C, R), torch.float32).T
+                + _at(b2, (2 * C,), torch.float32)).chunk(2, dim=1)
+        _at(out, (B, HW, C), torch.bfloat16).copy_(torch.relu(
+            xt + torch.sigmoid(g)[:, None] * yt + o[:, None]))
         return 0
 
     @staticmethod
@@ -556,3 +570,92 @@ def test_conv_plan_by_shape(case):
             covered[bx * bm:(bx + 1) * bm, by * bn:(by + 1) * bn] += 1
     assert (covered[:m, :n] == 1).all()
     assert (gx - 1) * bm < m and (gy - 1) * bn < n
+
+
+# ---------------------------------------------------------------------------
+# Squeeze-excitation gates (``se_ratio`` > 0)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("batch", [3, 256])
+@pytest.mark.parametrize("shape", ["c4", "c5x4", "chess"])
+def test_plain_fused_forward_matches_module_se(shape, batch):
+    """The plain version of a net with squeeze-excitation gates against its
+    module at the bounds of ``test_plain_fused_forward_matches_module``:
+    float32 the same function up to the order of sums, bf16 within 0.05
+    (depth 3)."""
+    obs = _obs(shape, batch)
+    with torch.inference_mode():
+        net = _net(shape, "float32", projection=False, depth=3, se_ratio=4)
+        want = net(obs)
+        assert _gap(fused_net.forward_plain(net, obs), want) < 1e-5
+        bf16 = _net(shape, "bfloat16", projection=False, depth=3, se_ratio=4)
+        module = bf16(obs)
+        fused = fused_net.forward_plain(bf16, obs)
+    assert all(t.dtype == torch.float32 for t in fused)
+    assert _gap(module, want) < 0.05
+    assert _gap(fused, want) < 0.05
+    assert _gap(fused, module) < 0.05
+
+
+@pytest.mark.parametrize("batch", [3, 64])
+@pytest.mark.parametrize("shape", ["c4", "c5x4"])
+def test_launch_sequence_and_counters_se(stand_ins, shape, batch):
+    """A 64-filter net with squeeze-excitation gates through the stand-ins:
+    each block's second conv on the pipelined kernel without skip or ReLU
+    (residual 3), then one ``se`` launch a block (``se.launches``); no
+    gate weight in the pack; the result is the plain version's and, within
+    the bf16 bound, the module's in float32; a second forward repeats it."""
+    net = _net(shape, projection=False, depth=3, filters=WIDE, se_ratio=8)
+    twin = _net(shape, "float32", projection=False, depth=3, filters=WIDE,
+                se_ratio=8)
+    obs = _obs(shape, batch)
+    counts = (fused_net.conv.launches, fused_net.conv.identity_launches,
+              fused_net.se.launches)
+    forward = fused_net.FusedForward(net)
+    with torch.inference_mode():
+        got = forward._forward_cuda(obs)
+        want = fused_net.forward_plain(net, obs)
+        want32 = twin(obs)
+    depth = len(net.blocks)
+    assert (fused_net.conv.launches - counts[0],
+            fused_net.conv.identity_launches - counts[1],
+            fused_net.se.launches - counts[2]) == (1 + 2 * depth, 0, depth)
+    rows = fused_net.pack_layout(net)[0]
+    assert [r[0] for r in rows] == [b.conv.weight.data_ptr() for b in
+                                    fused_net.trunk_convs(net)]
+    assert len(rows) == 1 + 2 * depth
+    cells = math.prod(SHAPES[shape][1])
+    m = batch * cells
+    plain = fused_net.conv_plan(m, WIDE, WIDE, 9, 132)
+    assert stand_ins.calls[1:-1] == [("conv", 4, 3)] + [
+        call for _ in range(depth) for call in (
+            ("conv_pipelined", WIDE, 3, 0, plain),
+            ("conv_pipelined", WIDE, 3, 3, plain),
+            ("se", batch, cells, WIDE, WIDE // 8))]
+    assert _gap(got, want) < 1e-2
+    assert _gap(got, want32) < 0.05
+    with torch.inference_mode():
+        assert _gap(forward._forward_cuda(obs), got) == 0.0
+
+
+@pytest.mark.parametrize("filters, ratio, taken", [
+    (64, 8, True), (128, 1, True), (192, 8, False), (256, 8, True),
+    (256, 4, True), (512, 8, False), (512, 32, True), (64, 32, False)])
+def test_applies_to_se_nets_the_se_kernel_takes(filters, ratio, taken):
+    """The ``se`` kernel takes a gated net whose filters divide
+    SE_MAX_FILTERS (a 16-byte chunk of channels a thread), whose hidden
+    units are a multiple of 4 (16-byte vectors of the dense layers) and
+    whose gate's dense weights fit an SM's shared memory with the sums (512
+    filters at ratio 8: 384 KB); 192 filters, a multiple of K_STEP, 512 at
+    ratio 8 and 64 at ratio 32 (2 hidden units) run the module path when
+    gated and the fused forward when not."""
+    net = PolicyValueNet(7, ModelConfig(depth=1, filters=filters,
+                                        residual_projection=False,
+                                        se_ratio=ratio)).eval()
+    assert (fused_net.se_smem_bytes(filters, filters // ratio)
+            <= fused_net.SE_SMEM_LIMIT) == (filters != 512 or ratio != 8)
+    assert fused_net.applies(net, _CudaObservations()) == taken
+    plain = PolicyValueNet(7, ModelConfig(depth=1, filters=filters,
+                                          residual_projection=False)).eval()
+    assert fused_net.applies(plain, _CudaObservations())

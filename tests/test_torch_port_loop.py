@@ -397,8 +397,10 @@ def test_max_game_plies():
 
 def _without_port_keys(tree: dict) -> dict:
     """A config tree without the port's own ``model.residual_projection``
-    (default True, the JAX net's block)."""
+    (default True, the JAX net's block) and ``model.se_ratio`` (default 0,
+    no squeeze-excitation gate)."""
     assert tree["model"].pop("residual_projection") is True
+    assert tree["model"].pop("se_ratio") == 0
     return tree
 
 
