@@ -191,7 +191,10 @@ Phases (any failed check raises and exits non-zero):
     ``se_kernel`` on the kernel's inputs too, and its forward on both conv
     tiles, twice bit-equal); a promote between two replays of one captured
     search graph gives a fresh capture's results, on the fused and the
-    module path; the forward's device time beside its bound, the plain
+    module path, and so does an in-place train step between two searches
+    on one graph, in self-play and through the arena's mixed evaluator
+    (``train_between_searches``: one pack a recorded forward a search);
+    the forward's device time beside its bound, the plain
     version's and the module path's (cuDNN), and each kernel's, at c4-r5's
     B=1,024 and the 19 x 256 and SE nets' B=256; each block conv of those two
     shapes through the pipelined kernel (``conv_times``: us a launch, the
@@ -199,8 +202,10 @@ Phases (any failed check raises and exits non-zero):
     the fused net's launches counted from zero over main-path runs: phase
     11's arena, phase 12's ``run()`` and this phase's captured searches
     (c4-r5, 19 x 256 and SE 20 x 256: ``se.launches`` = 20 a forward in the
-    SE net, 0 in the others), each held to its forwards, and its Gamma draws
-    to one ``safe_gamma`` call a noisy search (``FusedNetCount``).
+    SE net, 0 in the others), each held to its forwards (the packs: one an
+    eager forward, plus one a forward recorded into a graph for each search
+    that replays it, ``pack.search_launches``), and its Gamma draws to one
+    ``safe_gamma`` call a noisy search (``FusedNetCount``).
 27. The kernels' JSON line, the card's line, and the result line.
 
 ``python3 chip_smoke.py --launch-shapes`` runs a tuning aid in place of the
@@ -948,15 +953,18 @@ class FusedNetCount:
     each counter of ops/fused_net.py set to 0 on entry, and the forwards
     that ``make_evaluate_fn`` sent through ``FusedForward`` counted as
     recorded (inside a CUDA graph capture) or eager, beside the evaluations
-    it sent to the module path on CUDA and the plain version's calls; and
-    the searches that drew their own root noise (``noisy``: root noise on,
-    no ``gamma`` given) beside the Gamma sampler's calls (``noise``).
-    ``check(name, depth, identity, se)`` holds the counters to the
-    forwards: one pack, 1 + 2 x depth convs (``identity`` of them adding an
+    it sent to the module path on CUDA and the plain version's calls; the
+    fused searches that replayed a graph, each with the ``FusedForward``s
+    that its capture recorded (``graph_packs``: their sum over the
+    searches); and the searches that drew their own root noise (``noisy``:
+    root noise on, no ``gamma`` given) beside the Gamma sampler's calls
+    (``noise``). ``check(name, depth, identity, se)`` holds the counters to
+    the forwards: 1 + 2 x depth convs (``identity`` of them adding an
     identity block's input), ``se`` squeeze-excitation launches and one
-    heads launch each, no module-path evaluation on the card, no plain
-    forward; and one ``safe_gamma`` call a noisy search, whatever its
-    length."""
+    heads launch each; a pack each eager forward, none a recorded one, and
+    ``pack.search_launches`` equal to ``graph_packs``; no module-path
+    evaluation on the card, no plain forward; and one ``safe_gamma`` call a
+    noisy search, whatever its length."""
 
     def __enter__(self):
         import inspect
@@ -969,11 +977,14 @@ class FusedNetCount:
 
         self.fused_net, self.rng = fused_net, rng
         fused_net.pack.launches = 0
+        fused_net.pack.search_launches = 0
         fused_net.conv.launches = 0
         fused_net.conv.identity_launches = 0
         fused_net.se.launches = 0
         fused_net.heads.launches = 0
         self.recorded = self.eager = self.module = self.noisy = 0
+        self.graph_packs = 0
+        self.capture = []  # the FusedForwards recorded by this capture
         self.plain = fused_net.forward_plain.calls
         self.noise = rng.safe_gamma.calls
         self._call = fused_net.FusedForward.__call__
@@ -985,9 +996,28 @@ class FusedNetCount:
 
             def search(*args, **kwargs):
                 bound = signature.bind(*args, **kwargs).arguments
-                count.noisy += int(bound["self"].cfg.use_dirichlet
+                this = bound["self"]
+                count.noisy += int(this.cfg.use_dirichlet
                                    and bound.get("gamma") is None)
-                return fn(*args, **kwargs)
+                if not isinstance(this, FusedConnectNSearchV2):
+                    return fn(*args, **kwargs)
+                captures = FusedConnectNSearchV2.captures
+                outer, count.capture = count.capture, []
+                try:
+                    out = fn(*args, **kwargs)
+                finally:
+                    recorded, count.capture = count.capture, outer
+                graph = bound.get("graph")
+                if graph or (graph is None and this.device.type == "cuda"):
+                    # The graph this search replayed keeps the number of
+                    # fused forwards its capture recorded.
+                    wave = this.static(
+                        bound["root_states"].board.shape[0],
+                        bound["simulations"]).graphs[bound["evaluate_fn"]]
+                    if FusedConnectNSearchV2.captures > captures:
+                        wave.fused_forwards = len(recorded)
+                    count.graph_packs += wave.fused_forwards
+                return out
             return search
 
         self._searches = [(owner, name, getattr(owner, name))
@@ -1001,6 +1031,8 @@ class FusedNetCount:
         def call(forward, obs):
             if torch.cuda.is_current_stream_capturing():
                 count.recorded += 1
+                if not any(f is forward for f in count.capture):
+                    count.capture.append(forward)
             else:
                 count.eager += 1
             return count._call(forward, obs)
@@ -1027,14 +1059,19 @@ class FusedNetCount:
               se: int = 0) -> dict:
         fn = self.fused_net
         forwards = self.recorded + self.eager
-        counts = {"pack": fn.pack.launches, "conv": fn.conv.launches,
+        counts = {"pack": fn.pack.launches,
+                  "pack_search": fn.pack.search_launches,
+                  "conv": fn.conv.launches,
                   "conv_identity": fn.conv.identity_launches,
                   "se": fn.se.launches, "heads": fn.heads.launches,
                   "forwards_recorded": self.recorded,
                   "forwards_eager": self.eager,
+                  "graph_packs": self.graph_packs,
                   "noisy_searches": self.noisy,
                   "safe_gamma_calls": self.noise}
-        check(counts["pack"] == forwards == counts["heads"]
+        check(counts["pack"] == self.eager + counts["pack_search"]
+              and counts["pack_search"] == self.graph_packs
+              and forwards == counts["heads"]
               and counts["conv"] == (1 + 2 * depth) * forwards
               and counts["conv_identity"] == identity * forwards
               and counts["se"] == se * forwards,
@@ -3619,6 +3656,76 @@ def conv_times(device) -> dict:
     return times
 
 
+def train_between_searches(device, arena: bool = False) -> dict:
+    """A captured K1 search (B=64, 24 noisy simulations) with a fused-net
+    evaluator of a fresh 2 x 64 bf16 net (``arena``: the arena's odd-ply
+    evaluator, ``_mixed_evaluators``, of a candidate and an incumbent net,
+    each forwarding its half), then an in-place train step of that (the
+    candidate's) net, then the same search again on the same graph.
+    Returns whether the second search's root visits and value sums equal
+    bit for bit those of a fresh capture of copies of the trained nets,
+    whether they changed from the first search's, the graph captures of
+    the two searches, and each search's packs (``pack.search_launches``)."""
+    import copy
+
+    from custom_alphazero_tpu_torch.config import (
+        ConnectNConfig,
+        MCTSConfig,
+        ModelConfig,
+    )
+    from custom_alphazero_tpu_torch.envs.connect_n import ConnectN
+    from custom_alphazero_tpu_torch.ops import fused_net
+    from custom_alphazero_tpu_torch.ops.fused_mcts_v2 import (
+        FusedConnectNSearchV2,
+    )
+    from custom_alphazero_tpu_torch.runtime.arena import _mixed_evaluators
+    from custom_alphazero_tpu_torch.runtime.evaluate import make_evaluate_fn
+    from custom_alphazero_tpu_torch.runtime.train import (
+        init_train_state,
+        make_train_step,
+    )
+
+    bsz, sims = 64, 24
+    env = ConnectN(ConnectNConfig())
+    gen = torch.Generator(device=device).manual_seed(21)
+    cfg = ModelConfig(depth=2, filters=64, value_hidden=64)
+    states = [init_train_state(7, cfg, gen, env.obs_shape, device)
+              for _ in range(2 if arena else 1)]
+    nets = [state.net for state in states]
+    starters = (torch.arange(bsz, device=device) >= bsz // 2).to(torch.int32)
+    mcts_cfg = MCTSConfig(simulations=sims, **NOISE)
+    positions = random_positions(env, bsz, 20, gen, device)
+
+    def evaluator(of):
+        fns = [make_evaluate_fn(net) for net in of]
+        return _mixed_evaluators(*fns, starters)[1] if arena else fns[0]
+
+    def run(search, evaluate):
+        noise = torch.Generator(device=device).manual_seed(7)
+        packs = fused_net.pack.search_launches
+        stats = search.search_root_stats(positions, evaluate, noise, sims)
+        return stats, fused_net.pack.search_launches - packs
+
+    search = FusedConnectNSearchV2(env, mcts_cfg, device)
+    evaluate = evaluator(nets)
+    captures = FusedConnectNSearchV2.captures
+    before, first_packs = run(search, evaluate)
+    obs = env.observe(random_positions(env, 128, 30, gen, device))
+    target_pi = torch.softmax(torch.randn(128, 7, generator=gen,
+                                          device=device), dim=-1)
+    target_z = torch.randint(-1, 2, (128,), generator=gen,
+                             device=device).float()
+    make_train_step(cfg)(states[0], obs, target_pi, target_z)
+    after, second_packs = run(search, evaluate)
+    captures = FusedConnectNSearchV2.captures - captures
+    fresh, _ = run(FusedConnectNSearchV2(env, mcts_cfg, device),
+                   evaluator([copy.deepcopy(net) for net in nets]))
+    return {"fresh_equal": same_bits(after[0], fresh[0])
+            and same_bits(after[1], fresh[1]),
+            "changed": not same_bits(before[1], after[1]),
+            "captures": captures, "packs": [first_packs, second_packs]}
+
+
 def fused_net_phase(device) -> dict:
     """Phase 26: ops/fused_net.py's kernels on the card. Each kernel against
     its plain version (the pack bit-equal, every conv layer and the heads
@@ -3892,6 +3999,21 @@ def fused_net_phase(device) -> dict:
             f"root visits changed at {int((before[0] != after[0]).sum())} "
             f"edges")
 
+    # An in-place train step between two searches on one graph reaches the
+    # second: in self-play and through the arena's mixed evaluator, whose
+    # graph records two forwards, so two packs a search.
+    trained = {}
+    for label, forwards in (("self-play", 1), ("arena", 2)):
+        got = train_between_searches(device, arena=label == "arena")
+        trained[label] = got
+        check(got["fresh_equal"] and got["changed"] and got["captures"] == 1
+              and got["packs"] == [forwards, forwards],
+              f"{label}: a train step between two searches on one graph: "
+              f"{got}")
+        log(f"fused net: {label}, an in-place train step between two "
+            f"searches on one graph (64 games, 24 sims): a fresh capture's "
+            f"root visits and values bit for bit; {got}")
+
     # Times at the self-play shape (TF32 back on for the module path).
     torch.backends.cudnn.deterministic = False
     conv_us = conv_times(device)
@@ -3978,6 +4100,7 @@ def fused_net_phase(device) -> dict:
         "source": "custom_alphazero_tpu_torch/csrc/fused_net.cu",
         "replaces": None,
         "launches_captured_search": search_counts,
+        "train_between_searches": trained,
         "max_abs_err": out_err,
         "ms": fused_ms,
         "conv_kernels_ms": conv_ms,

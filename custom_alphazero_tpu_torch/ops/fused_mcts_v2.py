@@ -32,7 +32,7 @@ layout.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,7 +43,7 @@ from custom_alphazero_tpu_torch.envs.connect_n import (
     has_line,
 )
 from custom_alphazero_tpu_torch.io import trace
-from custom_alphazero_tpu_torch.ops import _build
+from custom_alphazero_tpu_torch.ops import _build, fused_net
 from custom_alphazero_tpu_torch.runtime.evaluate import EvaluateFn
 from custom_alphazero_tpu_torch.search.mcts import (
     MCTS,
@@ -541,12 +541,15 @@ def init_carry(env: ConnectN, root_states: ConnectNState,
 
 class _Static:
     """The device memory of searches of one (batch, simulations): the carry,
-    the step buffers, and the captured wave per evaluator."""
+    the step buffers, the captured wave per evaluator, and the fused
+    forwards recorded into that wave, whose weights a search packs before
+    its replays."""
 
     def __init__(self, carry, buffers: StepBuffers):
         self.carry = carry
         self.buffers = buffers
         self.graphs: Dict[EvaluateFn, "torch.cuda.CUDAGraph"] = {}
+        self.packs: Dict[EvaluateFn, List[fused_net.FusedForward]] = {}
 
 
 class FusedConnectNSearchV2:
@@ -636,7 +639,8 @@ class FusedConnectNSearchV2:
         """The CUDA graph of one wave (the step kernel, then the evaluator
         into the step's inputs) on ``static``'s memory, captured on first
         use per evaluator. A capture runs real waves first, so the tree is
-        reset after it. An evaluator that cannot be captured (it waits for
+        reset after it. The fused forwards recorded into the graph go to
+        ``static.packs``. An evaluator that cannot be captured (it waits for
         the device, or computes on the host) makes the capture raise."""
         graph = static.graphs.get(evaluate_fn)
         if graph is not None:
@@ -650,11 +654,12 @@ class FusedConnectNSearchV2:
                 self._evaluate(static, evaluate_fn)
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with fused_net.recording() as recorded, torch.cuda.graph(graph):
             self._wave_step(static.buffers, static.carry, geom, record=True)
             self._evaluate(static, evaluate_fn)
         self.reset(static, root_states)
         static.graphs[evaluate_fn] = graph
+        static.packs[evaluate_fn] = recorded
         FusedConnectNSearchV2.captures += 1
         return graph
 
@@ -698,8 +703,11 @@ class FusedConnectNSearchV2:
 
         if graph:
             # The first search of a (batch, simulations) captures the graph
-            # here, outside the span of the waves.
+            # here, outside the span of the waves. The fused forwards
+            # recorded into it read weights packed once a search, here.
             wave = self._captured_wave(static, evaluate_fn, geom, root_states)
+            for forward in static.packs[evaluate_fn]:
+                forward.pack_weights()
         with trace.span("search.waves"):
             if graph:
                 for _ in range(simulations):

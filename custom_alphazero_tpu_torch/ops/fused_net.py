@@ -8,9 +8,10 @@ residual skip and ReLU in its epilogue, and in a net with
 squeeze-excitation gates one more kernel a block (csrc/fused_net.cu, built
 with nvcc by ``ops/_build.py`` on first use and bound through ctypes):
 
-- ``pack``: one launch a forward rounds every trunk conv weight, from the
-  live float32 parameters, to bf16 (as autocast rounds them) into one
-  buffer of C_out rows of (tap, C_in), the GEMM's K-major N x K operand;
+- ``pack``: rounds every trunk conv weight, from the live float32
+  parameters, to bf16 (as autocast rounds them) into one buffer of C_out
+  rows of (tap, C_in), the GEMM's K-major N x K operand: one launch a search
+  for a replayed forward, one a call for an eager one;
 - ``conv``: an implicit GEMM on NHWC activations. One GEMM row is one board
   cell: M = B x H x W, N = filters, K = taps x C_in. No im2col tensor is
   written. A block conv (bf16 input, C_in and filters multiples of K_STEP)
@@ -45,11 +46,23 @@ except that the value's hidden layer reads the heads' float32 output in
 float32 where autocast runs it in bf16 (one rounding fewer, no per-forward
 weight cast).
 
-Nothing is cached on the host between forwards: every launch reads the
-parameters and running statistics where they live, so an in-place
+No weight value is kept on the host: every launch reads the parameters
+and running statistics where they live, and an eager forward packs the
+conv weights anew into a buffer of its own. A forward recorded into a CUDA
+graph packs nothing: it reads the packed buffer that its ``FusedForward``
+owns (allocated at the first eager call, at a fixed address, which the
+graph keeps) and registers itself with the open ``recording()``. The
+search that captured the graph calls ``pack_weights`` of each forward
+recorded in it once a search, before the replays. So an in-place
 ``load_state_dict`` (``Learner.promote``) or a train step reaches the next
-forward, also one replayed from a captured CUDA graph. What the object keeps
-is the table of the conv weights' addresses that ``pack`` reads; it is
+search and every eager forward; it does not reach a replay later in the
+same search, and no caller changes weights there. A bare replay outside a
+search reads the weights of the last search or ``pack_weights``. The
+search keeps the recorded forwards beside its graphs (``_Static.packs`` in
+ops/fused_mcts_v2.py), not in them: ``_Static.graphs`` still maps an
+evaluator to its ``torch.cuda.CUDAGraph``, which a caller that replays a
+search's graph itself reads and replays. What the object keeps besides is
+the table of the conv weights' addresses that ``pack`` reads; it is
 rebuilt when an address changes. The pipelined kernel's TMA descriptors
 (of the packed weights and the activations, whose addresses a captured
 graph keeps) are encoded at each launch and passed by value, so a graph
@@ -65,8 +78,9 @@ and what the design does about it, is in the source's head comment.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -453,22 +467,48 @@ def heads(x: torch.Tensor, net: PolicyValueNet, p_out, v_out) -> None:
 # Launches made from the host. A launch recorded into a CUDA graph counts
 # once, when recorded; its replays are not counted. ``identity_launches``:
 # the conv launches that added an identity block's input.
+# ``search_launches``: the packs that a search launched before its replays
+# (``FusedForward.pack_weights``), also counted in ``launches``.
 pack.launches = 0
+pack.search_launches = 0
 conv.launches = 0
 conv.identity_launches = 0
 se.launches = 0
 heads.launches = 0
 
 
+# The forwards recorded into the CUDA graph being captured, while a
+# ``recording()`` is open.
+_RECORDING: Optional[List["FusedForward"]] = None
+
+
+@contextlib.contextmanager
+def recording():
+    """Open around a CUDA graph capture: yields the list of the
+    ``FusedForward``s whose forward was recorded into the graph, each once.
+    Whoever replays the graph calls their ``pack_weights`` before its
+    replays."""
+    global _RECORDING
+    outer, _RECORDING = _RECORDING, []
+    try:
+        yield _RECORDING
+    finally:
+        _RECORDING = outer
+
+
 class FusedForward:
     """``net``'s eval-mode forward: the kernels for CUDA observations, the
     plain version for CPU ones (any other device raises). Observations are
     (B, H, W, C_in) float32 NHWC; returns (logits (B, A), value (B,)),
-    float32."""
+    float32.
+
+    ``packed``: the bf16 buffer of ``pack_layout``'s length that a forward
+    recorded into a CUDA graph reads and ``pack_weights`` fills."""
 
     def __init__(self, net: PolicyValueNet):
         self.net = net
         self._layout = None  # (weight addresses, pack table)
+        self.packed: Optional[torch.Tensor] = None
 
     def __call__(self, obs: torch.Tensor):
         if obs.device.type == "cpu":
@@ -477,20 +517,32 @@ class FusedForward:
             raise ValueError(f"no fused forward for device {obs.device}")
         return self._forward_cuda(obs)
 
-    def _table(self, device):
+    def _table(self, device, capturing: bool = False):
         """The pack table on ``device`` and its rows, rebuilt when a weight's
-        address changed (never inside a graph capture: a host copy cannot be
-        captured)."""
+        address changed, and ``packed``, allocated when its length changed;
+        neither while ``capturing`` (a host copy cannot be captured, and the
+        buffer lives outside any graph's memory)."""
         rows, length = pack_layout(self.net)
         addresses = tuple(row[0] for row in rows)
-        if self._layout is None or self._layout[0] != addresses:
-            if (device.type == "cuda"
-                    and torch.cuda.is_current_stream_capturing()):
+        sized = self.packed is not None and self.packed.numel() == length
+        if self._layout is None or self._layout[0] != addresses or not sized:
+            if capturing:
                 raise RuntimeError("the fused forward's first call for a net "
                                    "must run outside a CUDA graph capture")
             table = torch.tensor(rows, dtype=torch.int64, device=device)
             self._layout = (addresses, table)
+            if not sized:
+                self.packed = torch.empty(length, dtype=torch.bfloat16,
+                                          device=device)
         return self._layout[1], rows, length
+
+    def pack_weights(self) -> None:
+        """One ``pack`` launch, on the current stream, of the live conv
+        weights into ``packed``: what the forwards recorded into a graph
+        read on its replays."""
+        table, rows, _ = self._table(self.net.stem.conv.weight.device)
+        pack(table, self.packed, rows)
+        pack.search_launches += 1
 
     def _forward_cuda(self, obs: torch.Tensor):
         net = self.net
@@ -517,9 +569,20 @@ class FusedForward:
                              f"{net.cfg.filters} filters at ratio "
                              f"{net.cfg.se_ratio}")
         obs = obs.contiguous()
-        table, rows, length = self._table(obs.device)
-        packed = torch.empty(length, dtype=torch.bfloat16, device=obs.device)
-        pack(table, packed, rows)
+        capturing = torch.cuda.is_current_stream_capturing()
+        table, rows, length = self._table(obs.device, capturing)
+        if capturing:
+            if _RECORDING is None:
+                raise RuntimeError("a fused forward recorded into a CUDA "
+                                   "graph needs an open fused_net.recording()"
+                                   ": nothing would pack its weights")
+            if self not in _RECORDING:
+                _RECORDING.append(self)
+            packed = self.packed
+        else:
+            packed = torch.empty(length, dtype=torch.bfloat16,
+                                 device=obs.device)
+            pack(table, packed, rows)
         weights = iter(packed[offset:offset + cout * padded_depth(cin, taps)]
                        for _, offset, cout, cin, taps in rows)
 

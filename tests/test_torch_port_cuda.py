@@ -350,6 +350,23 @@ def test_arena_captures_two_graphs_per_pair():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arena", [False, True])
+def test_train_step_between_two_searches_reaches_the_second(arena):
+    """A captured K1 search with the fused net, an in-place train step of
+    the net, then a second search on the same graph: the root visits and
+    value sums of a fresh capture of the trained net, bit for bit. Through
+    the arena's mixed evaluator (the candidate trained) too, whose graph
+    records both nets' forwards: two packs a search."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    got = chip_smoke.train_between_searches(torch.device("cuda"), arena)
+    forwards = 2 if arena else 1
+    assert got["fresh_equal"] and got["changed"]
+    assert got["captures"] == 1
+    assert got["packs"] == [forwards, forwards]
+
+
+@pytest.mark.cuda
 def test_oracle_and_tree_render_on_card():
     """The solver oracle takes card observations and answers on the card,
     as on the CPU; a search tree on the card renders to the same DOT text

@@ -270,9 +270,12 @@ class _StandIns:
 
     def __init__(self):
         self.calls = []
+        self.packed_into = []  # each pack's output address
+        self.weights = []  # each conv launch's packed weight address
 
     def fused_net_pack(self, table, layers, tiles, out, stream):
         self.calls.append(("pack", layers, tiles))
+        self.packed_into.append(out)
         for address, offset, cout, cin, taps in _at(
                 table, (layers, 5), torch.int64).tolist():
             w = _at(address, (cout, cin, taps), torch.float32)
@@ -289,6 +292,7 @@ class _StandIns:
         bn = args[:5]
         out, M, H, W, N, eps, stream = args[5:]
         self.calls.append(("conv", C, ks))
+        self.weights.append(w)
         y = _epilogue(self._sums(_at(x, (M, C), torch.float32), w, C, ks, H,
                                  W, N), bn, N, eps)
         _at(out, (M, N), torch.bfloat16).copy_(torch.relu(y))
@@ -298,6 +302,7 @@ class _StandIns:
         bn, (r, wr), rbn = args[:5], args[5:7], args[7:12]
         residual, out, M, H, W, N, eps, bm, stream = args[12:]
         self.calls.append(("conv_pipelined", C, ks, residual, bm))
+        self.weights.append(w)
         # The tile ``conv_plan`` gives the shape on an H100's 132 SMs.
         assert bm == fused_net.conv_plan(M, N, C, ks * ks, 132,
                                          projection=residual == 1)
@@ -354,6 +359,9 @@ def stand_ins(monkeypatch):
     monkeypatch.setattr(fused_net, "_LIB", lib)
     monkeypatch.setattr(fused_net, "_stream", lambda device: None)
     monkeypatch.setattr(fused_net, "_sm_count", lambda device: 132)
+    # No CUDA graph is being captured, unless a test says so.
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
     return lib
 
 
@@ -457,6 +465,157 @@ def test_inplace_load_and_train_step_reach_the_next_fused_forward(
 
     net.stem.conv.weight = torch.nn.Parameter(net.stem.conv.weight.clone())
     assert fused_net.pack_layout(net)[0][0][0] != addresses[0]
+
+
+def _recorded_forward(monkeypatch, forward, obs):
+    """``forward``'s CUDA route as recorded into a CUDA graph (the stream
+    reads as capturing) inside an open ``recording()``: (its output, the
+    forwards the recording collected)."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    try:
+        with fused_net.recording() as recorded, torch.inference_mode():
+            out = forward._forward_cuda(obs)
+    finally:
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                            lambda: False)
+    return out, recorded
+
+
+def _inside(address: int, buffer: torch.Tensor) -> bool:
+    return (buffer.data_ptr() <= address
+            < buffer.data_ptr() + buffer.numel() * buffer.element_size())
+
+
+def test_recorded_forward_reads_the_packed_buffer_and_registers(
+        stand_ins, monkeypatch):
+    """A forward made while the stream is being captured launches no pack,
+    reads every conv weight from its ``FusedForward``'s persistent buffer
+    (as ``pack_weights`` left it: the eager forward's result bit for bit)
+    and registers itself, once, with the open recording. Without an open
+    recording, or before any eager call allocated the buffer, it raises."""
+    net, obs = _net("c4", filters=WIDE), _obs("c4", 16)
+    forward = fused_net.FusedForward(net)
+    with torch.inference_mode():
+        eager = forward._forward_cuda(obs)
+    forward.pack_weights()
+    stand_ins.calls.clear()
+    stand_ins.weights.clear()
+    launches = fused_net.pack.launches
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    with fused_net.recording() as recorded, torch.inference_mode():
+        got = forward._forward_cuda(obs)
+        again = forward._forward_cuda(obs)
+    assert recorded == [forward]
+    assert fused_net.pack.launches == launches
+    assert all(call[0] != "pack" for call in stand_ins.calls)
+    assert stand_ins.weights[0] == forward.packed.data_ptr()
+    assert all(_inside(w, forward.packed) for w in stand_ins.weights)
+    for x, y, z in zip(got, again, eager):
+        assert torch.equal(x, z) and torch.equal(y, z)
+    with pytest.raises(RuntimeError), torch.inference_mode():
+        forward._forward_cuda(obs)  # no recording open
+    with pytest.raises(RuntimeError), fused_net.recording(), \
+            torch.inference_mode():
+        fused_net.FusedForward(net)._forward_cuda(obs)  # never called eagerly
+
+
+def test_eager_forward_packs_once_a_call_into_a_fresh_buffer(stand_ins):
+    """Outside a capture every forward launches one pack, into a buffer of
+    its own (not the persistent one) that its convs read; no search pack
+    is counted."""
+    net, obs = _net("c4", filters=WIDE), _obs("c4", 8)
+    forward = fused_net.FusedForward(net)
+    launches = fused_net.pack.launches
+    search_launches = fused_net.pack.search_launches
+    convs = 1 + 2 * len(net.blocks)
+    with torch.inference_mode():
+        for call in range(3):
+            forward._forward_cuda(obs)
+            out = stand_ins.packed_into[-1]
+            assert out != forward.packed.data_ptr()
+            assert stand_ins.weights[-convs] == out
+            assert len(stand_ins.packed_into) == call + 1
+    assert fused_net.pack.launches == launches + 3
+    assert fused_net.pack.search_launches == search_launches
+
+
+def test_pack_weights_keeps_the_buffer_address(stand_ins):
+    """``pack_weights`` packs into the same buffer every call (its address
+    is what a captured graph keeps), one launch each, counted as a search
+    pack; eager forwards between them do not move it."""
+    net, obs = _net("c4", filters=WIDE), _obs("c4", 4)
+    forward = fused_net.FusedForward(net)
+    forward.pack_weights()
+    address = forward.packed.data_ptr()
+    launches = fused_net.pack.launches
+    search_launches = fused_net.pack.search_launches
+    for _ in range(3):
+        with torch.inference_mode():
+            forward._forward_cuda(obs)
+        forward.pack_weights()
+        assert forward.packed.data_ptr() == address
+        assert stand_ins.packed_into[-1] == address
+    assert fused_net.pack.launches == launches + 6
+    assert fused_net.pack.search_launches == search_launches + 3
+
+
+def test_pack_weights_reaches_the_recorded_forward_after_load_and_train(
+        stand_ins, monkeypatch):
+    """A recorded forward reads the conv weights of the last
+    ``pack_weights``: after ``promote``'s in-place ``load_state_dict`` and
+    after a train step it differs from the eager forward until
+    ``pack_weights`` runs, then equals the plain version of the changed
+    net and, bit for bit, the eager forward."""
+    obs = _obs("c4", 16)
+    cfg = ModelConfig(**dict(SMALL, filters=WIDE))
+    gen = torch.Generator().manual_seed(3)
+    state = init_train_state(7, cfg, gen, (6, 7, 4), device="cpu")
+    net = state.net
+    forward = fused_net.FusedForward(net)
+
+    def eager():
+        with torch.inference_mode():
+            return forward._forward_cuda(obs)
+
+    def plain():
+        with torch.inference_mode():
+            return fused_net.forward_plain(net, obs)
+
+    def recorded():
+        out, forwards = _recorded_forward(monkeypatch, forward, obs)
+        assert forwards == [forward]
+        return out
+
+    def equal(x, y):
+        return all(torch.equal(a, b) for a, b in zip(x, y))
+
+    eager()
+    forward.pack_weights()
+    address = forward.packed.data_ptr()
+    before = recorded()
+    assert equal(before, eager())
+
+    net.load_state_dict(_net("c4", seed=5, filters=WIDE).state_dict())
+    assert not equal(recorded(), eager())  # the old conv weights
+    forward.pack_weights()
+    promoted = recorded()
+    assert _gap(promoted, before) > 1e-3
+    assert _gap(promoted, plain()) < 1e-2
+    assert equal(promoted, eager())
+
+    step = make_train_step(cfg)
+    target_pi = torch.softmax(torch.randn(16, 7, generator=gen), dim=-1)
+    target_z = torch.randint(-1, 2, (16,), generator=gen).float()
+    state, _ = step(state, obs, target_pi, target_z)
+    assert not equal(recorded(), eager())
+    forward.pack_weights()
+    trained = recorded()
+    assert _gap(trained, promoted) > 1e-6
+    assert _gap(trained, plain()) < 1e-2
+    assert equal(trained, eager())
+    assert forward.packed.data_ptr() == address
 
 
 def test_wrapper_refuses_what_the_kernels_do_not_take():
