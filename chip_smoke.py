@@ -196,13 +196,18 @@ Phases (any failed check raises and exits non-zero):
     (``train_between_searches``: one pack a recorded forward a search);
     the forward's device time beside its bound, the plain
     version's and the module path's (cuDNN), and each kernel's, at c4-r5's
-    B=1,024 and the 19 x 256 and SE nets' B=256; each block conv of those two
+    B=1,024 and the 19 x 256, SE and b18c384nbt nets' B=256 (the
+    b18c384nbt tower's pack bit-equal and each of its launches held to its
+    plain layer first, ``nbt_forward_check``); each block conv of those two
     shapes through the pipelined kernel (``conv_times``: us a launch, the
     bound, the plain layer, cuDNN's conv alone). The kernels' line reports
     the fused net's launches counted from zero over main-path runs: phase
     11's arena, phase 12's ``run()`` and this phase's captured searches
-    (c4-r5, 19 x 256 and SE 20 x 256: ``se.launches`` = 20 a forward in the
-    SE net, 0 in the others), each held to its forwards (the packs: one an
+    (c4-r5, 19 x 256, SE 20 x 256 and b18c384nbt: ``se.launches`` = 20 a
+    forward in the SE net, 0 in the others; in the b18c384nbt tower 112
+    convs a forward, ``conv.pointwise_launches`` 36, ``conv.preact_launches``
+    54 and ``gpool.launches`` 3, 0 in the others), each held to its
+    forwards (the packs: one an
     eager forward, plus one a forward recorded into a graph for each search
     that replays it, ``pack.search_launches``), and its Gamma draws to one
     ``safe_gamma`` call a noisy search (``FusedNetCount``).
@@ -213,12 +218,13 @@ phases: K1 built with 1, 2, 4 and 8 games (warps) per block, each checked
 and timed as in phase 3. ``python3 chip_smoke.py --conv-plans`` runs
 another: both tiles of the pipelined conv at the block conv shapes of the
 benchmark's cells and the arenas, each checked and timed
-(``fused_net.conv_plan``'s cost model was fitted to it). ``python3
+(``fused_net.conv_tile``'s cost model was fitted to it). ``python3
 chip_smoke.py --fused-net`` runs phase 26 alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -961,7 +967,10 @@ class FusedNetCount:
     (``noise``). ``check(name, depth, identity, se)`` holds the counters to
     the forwards: 1 + 2 x depth convs (``identity`` of them adding an
     identity block's input), ``se`` squeeze-excitation launches and one
-    heads launch each; a pack each eager forward, none a recorded one, and
+    heads launch each; in a nested bottleneck tower (``nested`` = (convs,
+    1x1 convs, dual-output convs, gpool launches) a forward) those counts
+    in place of 1 + 2 x depth, and none of the nested kinds elsewhere; a
+    pack each eager forward, none a recorded one, and
     ``pack.search_launches`` equal to ``graph_packs``; no module-path
     evaluation on the card, no plain forward; and one ``safe_gamma`` call a
     noisy search, whatever its length."""
@@ -980,7 +989,10 @@ class FusedNetCount:
         fused_net.pack.search_launches = 0
         fused_net.conv.launches = 0
         fused_net.conv.identity_launches = 0
+        fused_net.conv.pointwise_launches = 0
+        fused_net.conv.preact_launches = 0
         fused_net.se.launches = 0
+        fused_net.gpool.launches = 0
         fused_net.heads.launches = 0
         self.recorded = self.eager = self.module = self.noisy = 0
         self.graph_packs = 0
@@ -1056,14 +1068,19 @@ class FusedNetCount:
         return False
 
     def check(self, name: str, depth: int, identity: int = 0,
-              se: int = 0) -> dict:
+              se: int = 0, nested=None) -> dict:
         fn = self.fused_net
         forwards = self.recorded + self.eager
+        convs, pointwise, preact, pools = (
+            (1 + 2 * depth, 0, 0, 0) if nested is None else nested)
         counts = {"pack": fn.pack.launches,
                   "pack_search": fn.pack.search_launches,
                   "conv": fn.conv.launches,
                   "conv_identity": fn.conv.identity_launches,
-                  "se": fn.se.launches, "heads": fn.heads.launches,
+                  "conv_pointwise": fn.conv.pointwise_launches,
+                  "conv_preact": fn.conv.preact_launches,
+                  "se": fn.se.launches, "gpool": fn.gpool.launches,
+                  "heads": fn.heads.launches,
                   "forwards_recorded": self.recorded,
                   "forwards_eager": self.eager,
                   "graph_packs": self.graph_packs,
@@ -1072,8 +1089,11 @@ class FusedNetCount:
         check(counts["pack"] == self.eager + counts["pack_search"]
               and counts["pack_search"] == self.graph_packs
               and forwards == counts["heads"]
-              and counts["conv"] == (1 + 2 * depth) * forwards
+              and counts["conv"] == convs * forwards
               and counts["conv_identity"] == identity * forwards
+              and counts["conv_pointwise"] == pointwise * forwards
+              and counts["conv_preact"] == preact * forwards
+              and counts["gpool"] == pools * forwards
               and counts["se"] == se * forwards,
               f"{name}: fused net launches {counts} do not match its "
               f"forwards")
@@ -3354,6 +3374,12 @@ def fused_flops_and_bytes(net, bsz: int, hw) -> tuple:
         flops += 2 * bsz * dense.in_features * dense.out_features
         bytes_ += 4 * dense.weight.numel()
     for block in net.blocks:
+        if getattr(block, "inner", None) is not None:
+            # A pooled inner block's dense layer (its bytes uncounted).
+            dense = block.inner[0].gpool
+            if dense is not None:
+                flops += 2 * bsz * dense.dense.weight.numel()
+            continue
         if block.se is not None:
             # The gate's dense layers, its second conv's output read twice
             # and the block's output written.
@@ -3460,8 +3486,190 @@ def se_forward_check(device, bsz: int, filters: int, depth: int = 20) -> dict:
                                  and torch.equal(got[1], again[1])),
             "conv_launches": counts[0], "se_launches": counts[1],
             "plain_calls": counts[2],
-            "tile": fused_net.conv_plan(m, filters, filters, 9,
-                                        fused_net._sm_count(device))}
+            "tile": fused_net.conv_tile(m, filters, filters, 9,
+                                        fused_net._sm_count(device))[0]}
+
+
+def nbt_net(device, depth: int = 18, filters: int = 384, mid: int = 192,
+            pooled: int = 64, pooled_blocks=(5, 10, 15), seed: int = 18):
+    """KataGo's b18c384nbt tower (18 nested bottleneck blocks, 384 / 192 /
+    64 channels, blocks 5, 10 and 15 pooled) at Connect-4's shapes, eval
+    mode: the port's init from a fixed seed, then every BatchNorm's scale,
+    offset and running statistics and every conv bias drawn away from their
+    identity values (``az_net``'s ranges)."""
+    from custom_alphazero_tpu_torch.config import ModelConfig
+    from custom_alphazero_tpu_torch.runtime.train import init_train_state
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cfg = ModelConfig(depth=depth, filters=filters, mid_filters=mid,
+                      gpool_filters=pooled, gpool_blocks=tuple(pooled_blocks),
+                      residual_projection=False)
+    net = init_train_state(7, cfg, gen, (6, 7, 4), device=device).net.eval()
+    with torch.no_grad():
+        for module in net.modules():
+            if hasattr(module, "running_var"):
+                for t, lo, hi in ((module.weight, 0.5, 1.5),
+                                  (module.running_var, 0.5, 2.0)):
+                    t.copy_(lo + (hi - lo) * torch.rand(
+                        t.shape, generator=gen, device=device))
+                for t in (module.bias, module.running_mean):
+                    t.copy_(0.1 * torch.randn(t.shape, generator=gen,
+                                              device=device))
+            elif isinstance(module, torch.nn.Conv2d):
+                module.bias.copy_(0.05 * torch.randn(
+                    module.bias.shape, generator=gen, device=device))
+    # Running statistics from the batch statistics of 1,024 random
+    # positions (the c4-b18c384nbt recipe's calibration): drawn alone they
+    # leave 18 blocks' activations far from unit scale, where rounding
+    # differences grow from block to block.
+    from custom_alphazero_tpu_torch.config import ConnectNConfig
+    from custom_alphazero_tpu_torch.envs.connect_n import ConnectN
+    from custom_alphazero_tpu_torch.models.policy_value import BatchNorm
+
+    env = ConnectN(ConnectNConfig())
+    obs = env.observe(random_positions(env, 1024, 30, gen, device))
+    norms = [m for m in net.modules() if isinstance(m, BatchNorm)]
+    for module in norms:
+        module.momentum = 1.0  # the running statistics become the batch's
+    with torch.no_grad():
+        net.train()(obs)
+    net.eval()
+    with torch.no_grad():
+        for module in norms:
+            del module.momentum
+            std = module.running_var.sqrt()
+            module.running_mean.add_(0.1 * std * torch.randn(
+                std.shape, generator=gen, device=device))
+            module.running_var.mul_(0.5 + 1.5 * torch.rand(
+                std.shape, generator=gen, device=device))
+    return net
+
+
+# The nested bottleneck tower's forward on the card against its plain
+# version: logits as a share of the plain logits' RMS, the value as is.
+# Every launch sits within a bf16 step of its plain layer, but 108 convs
+# deep the tower carries those steps on. Over twelve nets (``nbt_net``'s
+# seeds 18-29) on an H100 the fused forward read 0.170-0.371 and
+# 0.033-0.118 (seed 18, the one checked here: 0.150-0.175 and 0.049 over
+# runs), the module path (cuDNN, bf16 autocast), another sound bf16
+# forward, 0.289-0.601 and 0.051-0.229. Limits: one and a half times the
+# twelve nets' largest, below the module path's largest. A wiring fault
+# lies far above: without its pooled biases or inner skips the reference
+# moves the log-priors by 2.1 to 9.9 times the logits' RMS
+# (azbench.drivers.selfplay_nbt's readings).
+FUSED_NBT_LOGIT_LIMIT = 0.55
+FUSED_NBT_VALUE_LIMIT = 0.18
+
+
+@contextlib.contextmanager
+def nbt_layers(net, obs):
+    """While open, each launch of the nested tower's forward (the stem's
+    two outputs, ``conv_pre``, ``conv``, ``gpool``) is held to the plain
+    layer on the kernel's own inputs, after it runs: yields a dict of the
+    largest gap in bf16 steps by kind of launch."""
+    from custom_alphazero_tpu_torch.ops import fused_net as fn
+
+    bsz, h, w, _ = obs.shape
+    worst = {}
+    bf16 = torch.bfloat16
+
+    def nchw(t):
+        return t.reshape(bsz, h, w, -1).permute(0, 3, 1, 2).float()
+
+    def nhwc(t):
+        return t.permute(0, 2, 3, 1).reshape(bsz * h * w, -1)
+
+    def note(kind, got, want):
+        torch.cuda.synchronize()
+        worst[kind] = max(worst.get(kind, 0.0), bf16_steps(got, want))
+
+    orig = (fn.conv_pre, fn.conv, fn.gpool)
+
+    def conv_pre(x, wt, block, hw, raw=None, act=None, skip=None):
+        orig[0](x, wt, block, hw, raw, act, skip)
+        z = (fn._conv_plain(nchw(x), block, bf16)
+             + block.conv.bias[:, None, None])
+        if skip is not None:
+            z = z + nchw(skip)
+        kind = (f"{block.conv.kernel_size[0]}x{block.conv.kernel_size[0]}"
+                f"{' +skip' if skip is not None else ''}")
+        if raw is not None:
+            note(kind + " raw", raw, nhwc(z))
+        if act is not None:
+            base = raw if raw is not None else nhwc(z).to(bf16)
+            note(kind + " act", act[0], nhwc(fn._norm_plain(
+                nchw(base), act[1])))
+
+    def conv(x, wt, block, hw, out, residual=None, relu=True, act=None):
+        orig[1](x, wt, block, hw, out, residual, relu, act)
+        y = torch.relu(fn._epilogue_plain(fn._conv_plain(
+            nchw(x), block, bf16), block))
+        note("stem" if act is not None else "conv1 folded", out, nhwc(y))
+        if act is not None:
+            note("stem act", act[0], nhwc(fn._norm_plain(nchw(out), act[1])))
+
+    def gpool(r, g, inner, hw, out):
+        orig[2](r, g, inner, hw, out)
+        note("gpool", out, nhwc(fn._gpool_plain(nchw(r), nchw(g), inner)))
+
+    # The kernels' counters live on the functions: the stand-ins share them.
+    for wrapper, fn_orig in zip((conv_pre, conv, gpool), orig):
+        wrapper.__dict__ = fn_orig.__dict__
+    fn.conv_pre, fn.conv, fn.gpool = conv_pre, conv, gpool
+    try:
+        yield worst
+    finally:
+        fn.conv_pre, fn.conv, fn.gpool = orig
+
+
+def nbt_forward_check(device, bsz: int) -> dict:
+    """The b18c384nbt tower (``nbt_net``) at B=``bsz`` through the fused
+    forward: one forward with each launch held to its plain layer
+    (``nbt_layers``), then twice unwatched, against the plain version and
+    the module path (bf16 autocast, cuDNN): the gaps, the layers' worst
+    bf16 steps by kind, whether the two forwards were bit-equal, and the
+    launches counted in one forward."""
+    from custom_alphazero_tpu_torch.config import ConnectNConfig
+    from custom_alphazero_tpu_torch.envs.connect_n import ConnectN
+    from custom_alphazero_tpu_torch.ops import fused_net
+
+    env = ConnectN(ConnectNConfig())
+    gen = torch.Generator(device=device).manual_seed(bsz + 18)
+    net = nbt_net(device)
+    obs = env.observe(random_positions(env, bsz, 30, gen, device))
+    forward = fused_net.FusedForward(net)
+    counters = (lambda: (fused_net.conv.launches,
+                         fused_net.conv.pointwise_launches,
+                         fused_net.conv.preact_launches,
+                         fused_net.gpool.launches,
+                         fused_net.forward_plain.calls))
+    with torch.inference_mode():
+        with nbt_layers(net, obs) as layers:
+            forward(obs)
+        before = counters()
+        got = forward(obs)
+        counts = tuple(a - b for a, b in zip(counters(), before))
+        again = forward(obs)
+        plain = fused_net.forward_plain(net, obs)
+        module = net(obs)
+        torch.cuda.synchronize()
+    rms = plain[0].float().square().mean().sqrt().item()
+
+    def gaps(a, b=plain):
+        return ((a[0].float() - b[0].float()).abs().max().item() / rms,
+                (a[1].float() - b[1].float()).abs().max().item())
+
+    return {"logit_gap": gaps(got)[0], "value_gap": gaps(got)[1],
+            "module_logit_gap": gaps(module)[0],
+            "module_value_gap": gaps(module)[1],
+            "fused_module_logit_gap": gaps(got, module)[0],
+            "fused_module_value_gap": gaps(got, module)[1],
+            "logit_rms": rms, "layers": layers,
+            "repeat_equal": bool(torch.equal(got[0], again[0])
+                                 and torch.equal(got[1], again[1])),
+            "conv_launches": counts[0], "pointwise_launches": counts[1],
+            "preact_launches": counts[2], "gpool_launches": counts[3],
+            "plain_calls": counts[4]}
 
 
 def conv_layer_case(device, bsz: int, filters: int, skip: str,
@@ -3541,7 +3749,7 @@ def bf16_steps(got, want) -> float:
 
 def pipelined_conv_check(device, bsz: int, filters: int, skip: str) -> dict:
     """One block conv layer (``conv_layer_case``) through ``fused_net.conv``
-    (the pipelined kernel on ``conv_plan``'s tile): its gap from the plain
+    (the pipelined kernel on ``conv_tile``'s tile): its gap from the plain
     layer in bf16 steps and the conv launches counted."""
     from custom_alphazero_tpu_torch.ops import fused_net
 
@@ -3582,7 +3790,7 @@ CONV_SHAPES = (("c4-r5 B=1024", 1024, 128, "none"),
 
 
 def conv_plans(device) -> None:
-    """A tuning aid for ``fused_net.conv_plan``: at each of CONV_SHAPES, the
+    """A tuning aid for ``fused_net.conv_tile``: at each of CONV_SHAPES, the
     pipelined kernel on each tile (128 cells only with a projection),
     checked against the plain layer, and their device times."""
     from custom_alphazero_tpu_torch.ops import fused_net
@@ -3593,11 +3801,11 @@ def conv_plans(device) -> None:
             device, bsz, filters, skip)
         m = x.shape[0]
         out = torch.empty(m, filters, dtype=torch.bfloat16, device=device)
-        chosen = fused_net.conv_plan(m, filters, filters, 9, sms,
-                                     projection=skip == "projection")
+        chosen = fused_net.conv_tile(m, filters, filters, 9, sms,
+                                     projection=skip == "projection")[0]
         flops = 2 * m * filters * 9 * filters * (
             1 + (skip == "projection") / 9)
-        log(f"conv plans, {label} {skip}: conv_plan picks {chosen} cells")
+        log(f"conv plans, {label} {skip}: conv_tile picks {chosen} cells")
         with torch.inference_mode():
             for bm in fused_net.UNIT_US:
                 if skip == "projection" and bm != 128:
@@ -3612,7 +3820,7 @@ def conv_plans(device) -> None:
 def conv_times(device) -> dict:
     """Each block conv of the benchmark's self-play paths (c4-r5 at
     B=1,024, the 19 x 256 net at B=256) on the card: the pipelined kernel
-    on ``conv_plan``'s tile (checked against the plain layer), the bound
+    on ``conv_tile``'s tile (checked against the plain layer), the bound
     (the conv's FLOPs at the bf16 peak), the plain layer (TF32 off) and
     cuDNN's bf16 conv alone (the library yardstick): us a launch."""
     import torch.nn.functional as F
@@ -3626,8 +3834,8 @@ def conv_times(device) -> dict:
         x, packed, block, residual, want, plain = conv_layer_case(
             device, bsz, filters, skip)
         m = x.shape[0]
-        tile = fused_net.conv_plan(m, filters, filters, 9, sms,
-                                   projection=skip == "projection")
+        tile = fused_net.conv_tile(m, filters, filters, 9, sms,
+                                   projection=skip == "projection")[0]
         flops = 2 * m * filters * filters * (9 + (skip == "projection"))
         out = torch.empty_like(want)
         with torch.inference_mode():
@@ -3941,6 +4149,49 @@ def fused_net_phase(device) -> dict:
               and got["value_gap"] <= FUSED_SE_VALUE_LIMIT,
               f"SE 20 x {filters} forward: {got}")
 
+    # KataGo's b18c384nbt tower: its pack bit-equal, each launch against
+    # its plain layer and the forward against the plain version and the
+    # module path (``nbt_forward_check``), then its captured search's
+    # launches from zero: per forward 112 convs (36 of them 1x1, 54 with
+    # the dual output), 3 gpool launches, one heads.
+    nbt = nbt_net(device)
+    nbt_forward = fused_net.FusedForward(nbt)
+    with torch.inference_mode():
+        nbt_forward(cases[4][2])
+        table, rows, length = nbt_forward._table(device)
+        packed = torch.empty(length, dtype=torch.bfloat16, device=device)
+        fused_net.pack(table, packed, rows)
+        want_packed = torch.cat([F.pad(
+            b.conv.weight.permute(0, 2, 3, 1).flatten(1),
+            (0, fused_net.padded_depth(i, t) - i * t)).flatten()
+            for b, (_, _, _, i, t) in zip(fused_net.trunk_convs(nbt),
+                                          rows)]).bfloat16()
+    check(torch.equal(packed, want_packed),
+          "b18c384nbt: packed weights differ")
+    nbt_check = nbt_forward_check(device, 256)
+    log(f"fused net: b18c384nbt at B=256: pack bit-equal; {nbt_check}")
+    check(nbt_check["repeat_equal"] and nbt_check["plain_calls"] == 0
+          and (nbt_check["conv_launches"], nbt_check["pointwise_launches"],
+               nbt_check["preact_launches"], nbt_check["gpool_launches"])
+          == (112, 36, 54, 3)
+          and len(nbt_check["layers"]) == 11
+          and max(nbt_check["layers"].values()) <= FUSED_LAYER_STEPS
+          and nbt_check["logit_gap"] <= FUSED_NBT_LOGIT_LIMIT
+          and nbt_check["value_gap"] <= FUSED_NBT_VALUE_LIMIT,
+          f"b18c384nbt forward: {nbt_check}")
+    nbt_search = FusedConnectNSearchV2(env, MCTSConfig(simulations=8,
+                                                       **NOISE))
+    with FusedNetCount() as count:
+        nbt_search.search_root_stats(az_states, make_evaluate_fn(nbt),
+                                     torch.Generator(device=device)
+                                     .manual_seed(5), 8)
+    nbt_counts = count.check("b18c384nbt captured search", len(nbt.blocks),
+                             nested=(112, 36, 54, 3))
+    check(count.recorded == 1 and count.noise == 1,
+          f"b18c384nbt captured search: {nbt_counts}")
+    log(f"fused net: the b18c384nbt net's captured search (256 games, 8 "
+        f"sims): launches {nbt_counts}")
+
     # A promote between two replays of one captured search graph.
     # The promoted net: every parameter and running statistic of the c4-r5
     # net scaled by its own factor in [0.9, 1.1].
@@ -4094,6 +4345,26 @@ def fused_net_phase(device) -> dict:
     for name, ms in sorted(se_by_name.items(), key=lambda kv: -kv[1]):
         n = se_count_by_name[name]
         log(f"  {name[:70]}: {ms / n:.4f} ms ({n} events in 5 forwards)")
+
+    # The b18c384nbt tower at the same shape: its FLOPs from the shapes
+    # (every conv of ``trunk_convs``, the pooled biases' dense layers, the
+    # heads), bound by them.
+    with torch.inference_mode():
+        nbt_ms, nbt_host_ms = time_forward(nbt_forward, se_obs, 10)
+        nbt_module_ms, _ = time_forward(nbt, se_obs, 3)
+        _, nbt_by_name, nbt_count_by_name, _ = profiled(
+            lambda: [nbt_forward(se_obs) for _ in range(5)], host=False)
+    nbt_flops = fused_flops_and_bytes(nbt, 256, (6, 7))[0]
+    nbt_bound_ms = nbt_flops / 989e12 * 1e3
+    check(nbt_ms < nbt_module_ms, f"b18c384nbt B=256: fused {nbt_ms:.4f} "
+          f"ms, module path {nbt_module_ms:.4f} ms")
+    log(f"fused net at B=256 (b18c384nbt): device {nbt_ms:.4f} ms a forward "
+        f"(host enqueue {nbt_host_ms:.4f} ms), bound {nbt_bound_ms:.4f} ms "
+        f"({nbt_flops / 1e9:.1f} GFLOP), {nbt_flops / nbt_ms / 1e9:.1f} "
+        f"TFLOP/s; module path (cuDNN) {nbt_module_ms:.4f} ms")
+    for name, ms in sorted(nbt_by_name.items(), key=lambda kv: -kv[1]):
+        n = nbt_count_by_name[name]
+        log(f"  {name[:70]}: {ms / n:.4f} ms ({n} events in 5 forwards)")
     return {
         "name": "fused_net_forward",
         "route": "cuda",
@@ -4116,6 +4387,10 @@ def fused_net_phase(device) -> dict:
                           "library_ms": se_module_ms,
                           "launches_captured_search": se_counts,
                           "tiles": se_tiles},
+        "b18c384nbt_b256": {"ms": nbt_ms, "bound_ms": nbt_bound_ms,
+                            "library_ms": nbt_module_ms,
+                            "launches_captured_search": nbt_counts,
+                            "check": nbt_check},
         "convs_us": conv_us,
     }
 

@@ -4,10 +4,12 @@ Own copies of the JAX package's config dataclasses, with the same fields and
 defaults, the same dotted-key overrides and the same JSON snapshot, so a
 configuration file (e.g. ``artifacts/c4-r5/config.json``) reads into either
 package and writes back identically. Field comments live with the JAX
-originals (custom_alphazero_tpu/config.py). Two fields are the port's own:
-``model.residual_projection`` (default True, the JAX net's block) and
-``model.se_ratio`` (default 0, no squeeze-excitation gate), which the port's
-snapshot adds and the JAX package's ``from_json`` passes over.
+originals (custom_alphazero_tpu/config.py). Some fields are the port's
+own: ``model.residual_projection`` (default True, the JAX net's block),
+``model.se_ratio`` (default 0, no squeeze-excitation gate) and the nested
+bottleneck tower's ``model.mid_filters``, ``model.gpool_filters`` and
+``model.gpool_blocks`` (default 0, 0 and (): the classic blocks), which
+the port's snapshot adds and the JAX package's ``from_json`` passes over.
 """
 
 from __future__ import annotations
@@ -87,6 +89,21 @@ class ModelConfig:
     # units, a sigmoid scale and an offset a channel) on its second conv's
     # output; 0 has none. Only with residual_projection=False.
     se_ratio: int = 0
+    # Port-only: > 0 makes every block KataGo's pre-activation nested
+    # bottleneck (``bottlenest2``): a 1x1 conv from ``filters`` down to
+    # ``mid_filters``, two inner residual blocks of two 3x3 convs at that
+    # width, a 1x1 conv back up, the block input added; a final norm and
+    # ReLU before the heads. 0: the classic blocks above. Only with
+    # residual_projection=False and se_ratio=0.
+    mid_filters: int = 0
+    # Port-only, nested bottleneck blocks only: the pooled channels of a
+    # pooled block's first inner block (KataGo's ``bottlenest2gpool``: its
+    # first conv splits into mid_filters - gpool_filters regular channels
+    # and gpool_filters pooled ones, whose board mean, scaled mean and max
+    # become a channel bias of the regular ones), and which blocks pool,
+    # numbered from 1.
+    gpool_filters: int = 0
+    gpool_blocks: Tuple[int, ...] = ()
 
 
 @dataclass(frozen=True)
@@ -210,6 +227,32 @@ def validate(config: Config) -> Config:
         raise ValueError(
             f"model.se_ratio={m.se_ratio} does not divide model.filters="
             f"{m.filters}")
+    if m.mid_filters < 0 or m.gpool_filters < 0:
+        raise ValueError(
+            f"model.mid_filters={m.mid_filters} and model.gpool_filters="
+            f"{m.gpool_filters} must be >= 0 (0: none)")
+    if m.mid_filters and (m.se_ratio or m.residual_projection):
+        raise ValueError(
+            "model.mid_filters > 0 builds nested bottleneck blocks, which "
+            "carry their own skips: it needs model.residual_projection=false "
+            "and model.se_ratio=0")
+    if (m.gpool_filters or m.gpool_blocks) and not m.mid_filters:
+        raise ValueError(
+            "model.gpool_filters and model.gpool_blocks pool inside nested "
+            "bottleneck blocks: they need model.mid_filters > 0")
+    if bool(m.gpool_filters) != bool(m.gpool_blocks):
+        raise ValueError(
+            f"model.gpool_filters={m.gpool_filters} and model.gpool_blocks="
+            f"{m.gpool_blocks}: a pooled block needs both")
+    if m.gpool_filters and m.gpool_filters >= m.mid_filters:
+        raise ValueError(
+            f"model.gpool_filters={m.gpool_filters} leaves no regular channel"
+            f" of model.mid_filters={m.mid_filters}")
+    if any(not 1 <= b <= m.depth for b in m.gpool_blocks) or len(
+            set(m.gpool_blocks)) != len(m.gpool_blocks):
+        raise ValueError(
+            f"model.gpool_blocks={m.gpool_blocks}: distinct block numbers "
+            f"from 1 to model.depth={m.depth}")
     if config.arena.solver_score_veto and not (
         config.arena.evaluate_with_solver and config.game == "connect_n"
     ):

@@ -3,12 +3,13 @@
 // Replaces no TPU kernel: the JAX package leaves the net to XLA, which fuses
 // each layer's BatchNorm, bias, add and ReLU into the convolution on the
 // TPU. On the card the module path ran each of those as a separate pass over
-// the activation. Five kernels:
+// the activation. Six kernels:
 //
 // - pack: every trunk conv weight, read from the live float32 parameters
 //   through a table of addresses and rounded to bf16 (as autocast rounds
 //   it), into one buffer: C_out rows of (tap, C_in), zero-padded to whole K
-//   steps, the GEMM's K-major N x K operand. One launch a forward.
+//   steps, the GEMM's K-major N x K operand. One launch a search (a
+//   forward recorded into a graph), one an eager forward.
 // - conv_kernel_ws: a block conv, bf16 input with C_in and filters
 //   multiples of 64 (every block conv of a net the fused forward takes). An
 //   implicit GEMM on NHWC activations: one GEMM row is one board cell,
@@ -32,12 +33,21 @@
 //   squeeze-excitation gate the second conv's epilogue stops after the
 //   BatchNorm (kLinear: no skip, no ReLU) and se_kernel finishes the block.
 //   ops/fused_net.py's ``conv_plan`` picks the tile, 128 or 192 cells by
-//   128 filters, from the GEMM's shape.
+//   128 filters, from the GEMM's shape. A nested bottleneck tower's convs
+//   (pre-activation: each reads relu(n(y)) of the tensor before it) take
+//   the pre-activation modes (kPre, kPreIdentity): the conv's bias and an
+//   identity tile added, the sum rounded once as the skip stream and
+//   relu(n) of the rounded value, n the next conv's norm, written beside
+//   it, both staged through the ring; their 1x1 convs run as whole layers
+//   of one tap, and outputs of 192 filters take 96-filter tiles
+//   (wgmma m64n96k16; ``conv_tile``) where 128-filter ones would leave a
+//   tile half empty.
 // - conv_kernel: the stem, which reads the float32 observations over the
 //   flat K = taps x C_in and rounds them to bf16 on load: every thread
 //   gathers a run of K of one cell and a share of the weight (masked
 //   cp.async), and the block meets at a barrier each K step; the same
-//   epilogue, without a skip.
+//   epilogue, without a skip; before a nested bottleneck tower, a second
+//   output with the first block's norm and ReLU.
 // - se_kernel: a block's squeeze-excitation gate and the rest of the
 //   block, once a block: out = relu(x + sigmoid(g) * y + o), g and o the
 //   two halves of dense2(relu(dense1(mean of y over the board))), y the
@@ -51,6 +61,11 @@
 //   weights and biases, copied to shared memory while the board is summed,
 //   and the threads write the output in bf16 from the chunks of y and x
 //   they hold in registers since their first load: one read of each.
+// - gpool_kernel: a nested bottleneck tower's pooled inner block: the
+//   mean, scaled mean and max of the pooled channels over each position's
+//   cells (fixed order), the dense layer to a bias a regular channel, and
+//   relu(n(r + bias)) of the regular channels r, the next conv's input; as
+//   with se_kernel, a position's cells straddle the conv's tiles.
 // - heads: the policy and value 1x1 convs (a few filters each) over the
 //   trunk's bf16 output, one thread a board cell, with their BatchNorm and
 //   ReLU, written in float32 for the dense layers.
@@ -170,6 +185,34 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_m64n96k16(float (&d)[48], uint64_t a,
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(1));
+}
+
 // A conv's bias and eval-mode BatchNorm: y = z * scale + offset. nvcc
 // builds with -fmad=false, so each operation rounds as in the plain
 // version.
@@ -195,7 +238,18 @@ __host__ __device__ __forceinline__ int padded_depth(int depth) {
 // How a block conv's output takes a residual block's skip path (the entry
 // point's ``residual``); kLinear: neither a skip nor ReLU, the second conv
 // of a block whose squeeze-excitation gate se_kernel applies.
-enum Skip { kNoSkip = 0, kProjection = 1, kIdentity = 2, kLinear = 3 };
+// kPre and kPreIdentity: a nested bottleneck tower's pre-activation
+// epilogue, the conv's bias (and r itself, an identity tile) added, then two
+// outputs: the rounded sum (the skip stream) and relu(n(that)) with the next
+// conv's norm n (its input), either one absent.
+enum Skip {
+  kNoSkip = 0,
+  kProjection = 1,
+  kIdentity = 2,
+  kLinear = 3,
+  kPre = 4,
+  kPreIdentity = 5
+};
 
 // ---------------------------------------------------------------------------
 // The stem (conv_kernel): float32 observations x (B*H*W rows of C
@@ -213,7 +267,7 @@ struct Stem {
   static constexpr int kATile = BM * kBK * 2;  // bytes
   static constexpr int kBTile = kBN * kBK * 2;
   static constexpr int kStage = kATile + kBTile;  // a multiple of 1024
-  static constexpr int kFold = 2 * kBN * 4;       // a multiple of 1024
+  static constexpr int kFold = 4 * kBN * 4;       // a multiple of 1024
   static constexpr int kSmem = kFold + kStages * kStage;
   static_assert(kThreads == kBN, "one thread a filter of the tile");
 };
@@ -335,13 +389,17 @@ __device__ __forceinline__ void stem_k_loop(const StemInput& op, int M, int H,
   __syncthreads();
 }
 
-// One (64 x kBN) tile of the stem's output: relu(bn(conv(x))).
+// One (64 x kBN) tile of the stem's output: relu(bn(conv(x))); with out2,
+// also relu(nbn(y)) of the rounded output y into out2 (nbn's bias unread).
 __global__ void __launch_bounds__(Stem::kThreads)
-    conv_kernel(StemInput op, BatchNormArgs bn, bf16* __restrict__ out,
-                int M, int H, int W, int N, float eps) {
+    conv_kernel(StemInput op, BatchNormArgs bn, BatchNormArgs nbn,
+                bf16* __restrict__ out, bf16* __restrict__ out2, int M, int H,
+                int W, int N, float eps) {
   extern __shared__ __align__(1024) unsigned char smem[];
   float* s_scale = reinterpret_cast<float*>(smem);
   float* s_offset = s_scale + kBN;
+  float* n_scale = s_offset + kBN;
+  float* n_offset = n_scale + kBN;
   unsigned char* tiles = smem + Stem::kFold;
   if (smem_addr(tiles) % 1024 != 0) __trap();  // the swizzle needs it
   const int m0 = blockIdx.x * Stem::BM;
@@ -358,6 +416,13 @@ __global__ void __launch_bounds__(Stem::kThreads)
     p[3] = bn.mean[n0 + tid];
     p[4] = bn.var[n0 + tid];
   }
+  float q[4] = {0.0f, 0.0f, 0.0f, 1.0f};  // the next norm's, for out2
+  if (out2 != nullptr && has_col) {
+    q[0] = nbn.gamma[n0 + tid];
+    q[1] = nbn.beta[n0 + tid];
+    q[2] = nbn.mean[n0 + tid];
+    q[3] = nbn.var[n0 + tid];
+  }
 
   float acc[64];
 #pragma unroll
@@ -371,6 +436,11 @@ __global__ void __launch_bounds__(Stem::kThreads)
   }
   s_scale[tid] = s;
   s_offset[tid] = o;
+  if (out2 != nullptr) {
+    const float ns = has_col ? q[0] / sqrtf(q[3] + eps) : 0.0f;
+    n_scale[tid] = ns;
+    n_offset[tid] = has_col ? (0.0f - q[2]) * ns + q[1] : 0.0f;
+  }
   __syncthreads();
 
   // wgmma's accumulator layout: warp w holds cells 16 w to 16 w + 15; for
@@ -401,6 +471,35 @@ __global__ void __launch_bounds__(Stem::kThreads)
     const int col = n0 + (e % (kBN / 8)) * 8;
     if (m0 + r < M && col < N)
       *reinterpret_cast<uint4*>(out + (long long)(m0 + r) * N + col) =
+          *reinterpret_cast<const uint4*>(staged + r * kOutStride + col - n0);
+  }
+  if (out2 == nullptr) return;
+  // The second output, the next norm and ReLU of each rounded value, staged
+  // the same way once every thread has written its share of the first.
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int f = 8 * j + 2 * (lane & 3);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float v0 = acc[4 * j + 2 * half] * s_scale[f] + s_offset[f];
+      const float v1 =
+          acc[4 * j + 2 * half + 1] * s_scale[f + 1] + s_offset[f + 1];
+      const float2 y = __bfloat1622float2(
+          __floats2bfloat162_rn(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f)));
+      *reinterpret_cast<__nv_bfloat162*>(
+          staged + (row0 + 8 * half) * kOutStride + f) =
+          __floats2bfloat162_rn(
+              fmaxf(y.x * n_scale[f] + n_offset[f], 0.0f),
+              fmaxf(y.y * n_scale[f + 1] + n_offset[f + 1], 0.0f));
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < Stem::BM * kBN / 8; e += Stem::kThreads) {
+    const int r = e / (kBN / 8);
+    const int col = n0 + (e % (kBN / 8)) * 8;
+    if (m0 + r < M && col < N)
+      *reinterpret_cast<uint4*>(out2 + (long long)(m0 + r) * N + col) =
           *reinterpret_cast<const uint4*>(staged + r * kOutStride + col - n0);
   }
 }
@@ -485,33 +584,45 @@ __device__ __forceinline__ void tma_load_im2col(uint32_t dst,
 }
 
 // A pipelined tile: BM = 64 x WG board cells (WG consumer warpgroups, which
-// share each weight stage) by kBN filters, and one producer warp. A ring of
-// kStages stages in shared memory, each the step's A tile (BM cells x 64
-// channels) and B tile (kBN filters x 64 K), 128-byte swizzled; the
-// identity skip's tile beside it (two swizzled boxes of BM rows x 64
-// filters).
-template <int WG_, int SKIP_>
+// share each weight stage) by BN filters (kBN, or 96 for outputs of 192 that
+// would leave a 128-filter tile half empty), and one producer warp. A ring
+// of kStages stages in shared memory, each the step's A tile (BM cells x 64
+// channels) and B tile (BN filters x 64 K), 128-byte swizzled; the
+// identity skip's tile beside it (swizzled boxes of BM rows x 64 filters,
+// two for either width).
+template <int WG_, int SKIP_, int BN_ = kBN>
 struct Pipe {
   static constexpr int WG = WG_;
   static constexpr int SKIP = SKIP_;
+  static constexpr int BN = BN_;
+  static constexpr int kAcc = BN / 2;  // accumulators a consumer thread
   static constexpr int BM = 64 * WG;
   static constexpr int kConsumers = 128 * WG;
   static constexpr int kThreads = kConsumers + 32;
   static constexpr int kATile = BM * 128;  // bytes
-  static constexpr int kBTile = kBN * 128;
+  static constexpr int kBTile = BN * 128;
   static constexpr int kStage = kATile + kBTile;
-  static constexpr int kRow = kBN + 8;  // staged output rows, bf16
-  static constexpr int kSkip = SKIP == kIdentity ? BM * kBN * 2 : 0;
+  static constexpr int kRow = BN + 8;  // staged output rows, bf16
+  // An identity tile beside the ring; two staged outputs (the skip stream
+  // and its activation) in the pre-activation modes.
+  static constexpr bool kTile = SKIP == kIdentity || SKIP == kPreIdentity;
+  static constexpr bool kPreAct = SKIP == kPre || SKIP == kPreIdentity;
+  static constexpr int kOutputs = kPreAct ? 2 : 1;
+  static constexpr int kSkipBoxes = (BN + 63) / 64;
+  static constexpr int kSkip = kTile ? BM * 128 * kSkipBoxes : 0;
   static constexpr int kMaxStages = 6;
-  // The epilogue's four arrays of kBN floats, then the barriers.
+  // The epilogue's four arrays of BN floats, then the barriers.
   static constexpr int kHead =
-      (16 * kBN + 8 * (2 * kMaxStages + 1) + 1023) / 1024 * 1024;
+      (16 * BN + 8 * (2 * kMaxStages + 1) + 1023) / 1024 * 1024;
   static constexpr int kFit = (227 * 1024 - kHead - kSkip) / kStage;
   static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
   static constexpr int kSmem = kHead + kStages * kStage + kSkip;
   static_assert(kStages >= 2, "a ring of at least two stages");
-  static_assert(BM * kRow * 2 <= kStages * kStage, "staging fits the ring");
-  static_assert(kConsumers >= kBN, "a consumer thread a filter");
+  static_assert(kOutputs * BM * kRow * 2 <= kStages * kStage,
+                "staging fits the ring");
+  static_assert(kConsumers >= BN, "a consumer thread a filter");
+  static_assert(BN == kBN || (BN == 96 && SKIP != kProjection),
+                "the projection's second accumulator takes kBN filters");
 };
 
 // The producer's side of one K loop (one thread): for each step, wait until
@@ -559,7 +670,8 @@ __device__ __forceinline__ void produce(const CUtensorMap* xmap,
 template <class P>
 __device__ __forceinline__ void consume(int steps, int& t, uint32_t ring,
                                         uint32_t full0, uint32_t empty0,
-                                        int wg, int lane, float (&acc)[64]) {
+                                        int wg, int lane,
+                                        float (&acc)[P::kAcc]) {
   for (int i = 0; i < steps; ++i, ++t) {
     const int s = t % P::kStages;
     mbar_wait(full0 + 8 * s, (t / P::kStages) & 1);
@@ -568,9 +680,14 @@ __device__ __forceinline__ void consume(int steps, int& t, uint32_t ring,
     fence_acc(acc);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_m64n128k16(acc, descriptor(a_tile + 32 * kk),
-                       descriptor(b_tile + 32 * kk));
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      if constexpr (P::BN == 96)
+        wgmma_m64n96k16(acc, descriptor(a_tile + 32 * kk),
+                        descriptor(b_tile + 32 * kk));
+      else
+        wgmma_m64n128k16(acc, descriptor(a_tile + 32 * kk),
+                         descriptor(b_tile + 32 * kk));
+    }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
     fence_acc(acc);
@@ -586,22 +703,25 @@ struct Maps {
   CUtensorMap w, x, rw, rx, skip;
 };
 
-// One (BM x kBN) tile of a block conv's output, relu(bn(conv(x)) + skip),
+// One (BM x BN) tile of a block conv's output, relu(bn(conv(x)) + skip),
 // skip bn_r(proj(r)) (kProjection), r itself (kIdentity) or nothing; or
-// bn(conv(x)) alone (kLinear); fed by a producer warp.
+// bn(conv(x)) alone (kLinear); fed by a producer warp. In the
+// pre-activation modes y = conv(x) + bias (+ r, kPreIdentity), rounded,
+// into out, and relu(n(y)) of the rounded y into out2, n the norm in rbn
+// (its bias unread); a null out or out2 is not written.
 template <class P>
 __global__ void __launch_bounds__(P::kThreads)
     conv_kernel_ws(const __grid_constant__ Maps maps, int C, int ks,
                    BatchNormArgs bn, BatchNormArgs rbn,
-                   bf16* __restrict__ out, int M, int H, int W, int N,
-                   float eps) {
+                   bf16* __restrict__ out, bf16* __restrict__ out2, int M,
+                   int H, int W, int N, float eps) {
   constexpr int S = P::kStages;
   extern __shared__ __align__(1024) unsigned char smem[];
   float* s_scale = reinterpret_cast<float*>(smem);
-  float* s_offset = s_scale + kBN;
-  float* r_scale = s_offset + kBN;
-  float* r_offset = r_scale + kBN;
-  const uint32_t full0 = smem_addr(smem + 16 * kBN);
+  float* s_offset = s_scale + P::BN;
+  float* r_scale = s_offset + P::BN;
+  float* r_offset = r_scale + P::BN;
+  const uint32_t full0 = smem_addr(smem + 16 * P::BN);
   const uint32_t empty0 = full0 + 8 * S;
   const uint32_t skip_bar = empty0 + 8 * S;
   unsigned char* ring_ptr = smem + P::kHead;
@@ -609,7 +729,7 @@ __global__ void __launch_bounds__(P::kThreads)
   unsigned char* skip_tile = ring_ptr + S * P::kStage;
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * P::BM;
-  const int n0 = blockIdx.y * kBN;
+  const int n0 = blockIdx.y * P::BN;
   if (tid == 0) {
     if (ring % 1024 != 0) __trap();  // the swizzle needs it
     for (int s = 0; s < S; ++s) {
@@ -636,13 +756,13 @@ __global__ void __launch_bounds__(P::kThreads)
         prefetch_map(&maps.rx);
         prefetch_map(&maps.rw);
       }
-      if constexpr (P::SKIP == kIdentity) prefetch_map(&maps.skip);
+      if constexpr (P::kTile) prefetch_map(&maps.skip);
       int t = 0;
       // The identity skip's tile, loaded while the K loop runs.
       auto skip = [&]() {
-        if constexpr (P::SKIP == kIdentity) {
+        if constexpr (P::kTile) {
           mbar_expect_tx(skip_bar, P::kSkip);
-          for (int b = 0; b < kBN / 64; ++b)
+          for (int b = 0; b < P::kSkipBoxes; ++b)
             tma_load(smem_addr(skip_tile) + b * P::BM * 128, &maps.skip,
                      n0 + 64 * b, m0, skip_bar);
         }
@@ -661,9 +781,9 @@ __global__ void __launch_bounds__(P::kThreads)
     // filters hold none), loaded now and folded after the K loop, so that
     // their latency overlaps it: bias, gamma, beta, mean and var of the
     // conv (and of the projection).
-    constexpr int kGroups = P::SKIP == kProjection ? 2 : 1;
+    constexpr int kGroups = P::SKIP == kProjection || P::kPreAct ? 2 : 1;
     const int n = n0 + tid;
-    const bool real = tid < kBN && n < N;
+    const bool real = tid < P::BN && n < N;
     float prm[kGroups][5];
 #pragma unroll
     for (int g = 0; g < kGroups; ++g) {
@@ -674,9 +794,9 @@ __global__ void __launch_bounds__(P::kThreads)
       prm[g][3] = real ? a.mean[n] : 0.0f;
       prm[g][4] = real ? a.var[n] : 1.0f;
     }
-    float acc[64];
+    float acc[P::kAcc];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < P::kAcc; ++i) acc[i] = 0.0f;
     int t = 0;
     consume<P>(steps, t, ring, full0, empty0, wg, lane, acc);
     float racc[P::SKIP == kProjection ? 64 : 1];
@@ -689,8 +809,17 @@ __global__ void __launch_bounds__(P::kThreads)
     fence_acc(acc);
     if constexpr (P::SKIP == kProjection) fence_acc(racc);
     if (lane == 0) mbar_arrive(empty0 + 8 * ((t - 1) % S));
-    // Each filter's scale and offset (fold's arithmetic), zero past N.
-    if (tid < kBN) {
+    // Each filter's scale and offset (fold's arithmetic), zero past N; in
+    // the pre-activation modes the conv's bias (s_offset) and the next
+    // norm's scale and offset (r_scale, r_offset).
+    if constexpr (P::kPreAct) {
+      if (tid < P::BN) {
+        s_offset[tid] = prm[0][0];
+        const float sc = real ? prm[1][1] / sqrtf(prm[1][4] + eps) : 0.0f;
+        r_scale[tid] = sc;
+        r_offset[tid] = real ? (0.0f - prm[1][3]) * sc + prm[1][2] : 0.0f;
+      }
+    } else if (tid < P::BN) {
       float* folded[2][2] = {{s_scale, s_offset}, {r_scale, r_offset}};
 #pragma unroll
       for (int g = 0; g < 2; ++g) {
@@ -707,23 +836,30 @@ __global__ void __launch_bounds__(P::kThreads)
     // Every consumer is past the ring and the scales are written: the ring
     // stages the output.
     asm volatile("bar.sync 1, %0;\n" ::"n"(P::kConsumers) : "memory");
-    if constexpr (P::SKIP == kIdentity) mbar_wait(skip_bar, 0);
+    if constexpr (P::kTile) mbar_wait(skip_bar, 0);
     bf16* staged = reinterpret_cast<bf16*>(ring_ptr);
+    bf16* staged2 = staged + P::BM * P::kRow;  // the activation, kPreAct
     const int row0 = (tid >> 5) * 16 + (lane >> 2);
 #pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
+    for (int j = 0; j < P::BN / 8; ++j) {
       const int f = 8 * j + 2 * (lane & 3);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = row0 + 8 * half;
         const int i = 4 * j + 2 * half;
-        float v0 = acc[i] * s_scale[f] + s_offset[f];
-        float v1 = acc[i + 1] * s_scale[f + 1] + s_offset[f + 1];
+        float v0, v1;
+        if constexpr (P::kPreAct) {
+          v0 = acc[i] + s_offset[f];
+          v1 = acc[i + 1] + s_offset[f + 1];
+        } else {
+          v0 = acc[i] * s_scale[f] + s_offset[f];
+          v1 = acc[i + 1] * s_scale[f + 1] + s_offset[f + 1];
+        }
         if constexpr (P::SKIP == kProjection) {
           v0 += racc[i] * r_scale[f] + r_offset[f];
           v1 += racc[i + 1] * r_scale[f + 1] + r_offset[f + 1];
         }
-        if constexpr (P::SKIP == kIdentity) {
+        if constexpr (P::kTile) {
           // Filter f of the row: box f / 64, 16-byte chunk (f % 64) / 8
           // swizzled by the row.
           const int cf = f & 63;
@@ -734,6 +870,16 @@ __global__ void __launch_bounds__(P::kThreads)
           v0 += rv.x;
           v1 += rv.y;
         }
+        if constexpr (P::kPreAct) {
+          const __nv_bfloat162 y = __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<__nv_bfloat162*>(staged + row * P::kRow + f) = y;
+          const float2 yf = __bfloat1622float2(y);
+          *reinterpret_cast<__nv_bfloat162*>(staged2 + row * P::kRow + f) =
+              __floats2bfloat162_rn(
+                  fmaxf(yf.x * r_scale[f] + r_offset[f], 0.0f),
+                  fmaxf(yf.y * r_scale[f + 1] + r_offset[f + 1], 0.0f));
+          continue;
+        }
         if constexpr (P::SKIP != kLinear) {
           v0 = fmaxf(v0, 0.0f);
           v1 = fmaxf(v1, 0.0f);
@@ -743,9 +889,27 @@ __global__ void __launch_bounds__(P::kThreads)
       }
     }
     asm volatile("bar.sync 1, %0;\n" ::"n"(P::kConsumers) : "memory");
-    for (int e = tid; e < P::BM * kBN / 8; e += P::kConsumers) {
-      const int row = e / (kBN / 8);
-      const int col = n0 + (e % (kBN / 8)) * 8;
+    if constexpr (P::kPreAct) {
+#pragma unroll
+      for (int o = 0; o < 2; ++o) {
+        bf16* dst = o == 0 ? out : out2;
+        const bf16* src = o == 0 ? staged : staged2;
+        if (dst == nullptr) continue;
+        for (int e = tid; e < P::BM * P::BN / 8; e += P::kConsumers) {
+          const int row = e / (P::BN / 8);
+          const int col = n0 + (e % (P::BN / 8)) * 8;
+          if (m0 + row < M && col < N)
+            *reinterpret_cast<uint4*>(dst + (long long)(m0 + row) * N +
+                                      col) =
+                *reinterpret_cast<const uint4*>(src + row * P::kRow + col -
+                                                n0);
+        }
+      }
+      return;
+    }
+    for (int e = tid; e < P::BM * P::BN / 8; e += P::kConsumers) {
+      const int row = e / (P::BN / 8);
+      const int col = n0 + (e % (P::BN / 8)) * 8;
       if (m0 + row < M && col < N)
         *reinterpret_cast<uint4*>(out + (long long)(m0 + row) * N + col) =
             *reinterpret_cast<const uint4*>(staged + row * P::kRow + col -
@@ -834,8 +998,8 @@ bool im2col_map(CUtensorMap* map, const bf16* x, int B, int H, int W, int C,
 template <class P>
 cudaError_t launch_ws(const bf16* x, const bf16* w, int C, int ks,
                       const BatchNormArgs& bn, const bf16* r, const bf16* wr,
-                      const BatchNormArgs& rbn, bf16* out, int M, int H, int W,
-                      int N, float eps, cudaStream_t stream) {
+                      const BatchNormArgs& rbn, bf16* out, bf16* out2, int M,
+                      int H, int W, int N, float eps, cudaStream_t stream) {
   auto kernel = conv_kernel_ws<P>;
   static bool sized = false;  // above 48 KB: once per kernel, before use
   if (!sized) {
@@ -846,43 +1010,66 @@ cudaError_t launch_ws(const bf16* x, const bf16* w, int C, int ks,
   }
   const int B = M / (H * W);
   Maps maps;
-  bool ok = tiled_map(&maps.w, w, N, ks * ks * C, kBN) &&
+  bool ok = tiled_map(&maps.w, w, N, ks * ks * C, P::BN) &&
             im2col_map(&maps.x, x, B, H, W, C, ks, P::BM);
   maps.rw = maps.rx = maps.skip = maps.w;
   if (P::SKIP == kProjection)
     ok = ok && tiled_map(&maps.rw, wr, N, N, kBN) &&
          im2col_map(&maps.rx, r, B, H, W, N, 1, P::BM);
-  if (P::SKIP == kIdentity) ok = ok && tiled_map(&maps.skip, r, M, N, P::BM);
+  if (P::kTile) ok = ok && tiled_map(&maps.skip, r, M, N, P::BM);
   if (!ok) return cudaErrorInvalidValue;
-  const dim3 grid((M + P::BM - 1) / P::BM, (N + kBN - 1) / kBN);
+  const dim3 grid((M + P::BM - 1) / P::BM, (N + P::BN - 1) / P::BN);
   kernel<<<grid, P::kThreads, P::kSmem, stream>>>(maps, C, ks, bn, rbn, out,
-                                                  M, H, W, N, eps);
+                                                  out2, M, H, W, N, eps);
   return cudaGetLastError();
 }
 
 // The tiles' instances: a projection's second accumulator only on
-// 128-cell tiles (two warpgroups).
-template <int WG>
+// 128-cell tiles (two warpgroups); 96-filter tiles only for the modes of a
+// nested bottleneck tower's 192-filter convs.
+template <int WG, int BN>
 cudaError_t launch_ws_skip(const bf16* x, const bf16* w, int C, int ks,
                            const BatchNormArgs& bn, const bf16* r,
                            const bf16* wr, const BatchNormArgs& rbn,
-                           int residual, bf16* out, int M, int H, int W, int N,
-                           float eps, cudaStream_t s) {
+                           int residual, bf16* out, bf16* out2, int M, int H,
+                           int W, int N, float eps, cudaStream_t s) {
+  if constexpr (BN != kBN) {
+    switch (residual) {
+      case kNoSkip:
+        return launch_ws<Pipe<WG, kNoSkip, BN>>(x, w, C, ks, bn, r, wr, rbn,
+                                                out, out2, M, H, W, N, eps,
+                                                s);
+      case kPre:
+        return launch_ws<Pipe<WG, kPre, BN>>(x, w, C, ks, bn, r, wr, rbn,
+                                             out, out2, M, H, W, N, eps, s);
+      case kPreIdentity:
+        return launch_ws<Pipe<WG, kPreIdentity, BN>>(
+            x, w, C, ks, bn, r, wr, rbn, out, out2, M, H, W, N, eps, s);
+    }
+    return cudaErrorInvalidValue;
+  }
   switch (residual) {
     case kNoSkip:
-      return launch_ws<Pipe<WG, kNoSkip>>(x, w, C, ks, bn, r, wr, rbn, out, M,
-                                          H, W, N, eps, s);
+      return launch_ws<Pipe<WG, kNoSkip>>(x, w, C, ks, bn, r, wr, rbn, out,
+                                          out2, M, H, W, N, eps, s);
     case kProjection:
       if constexpr (WG == 2)
         return launch_ws<Pipe<WG, kProjection>>(x, w, C, ks, bn, r, wr, rbn,
-                                                out, M, H, W, N, eps, s);
+                                                out, out2, M, H, W, N, eps,
+                                                s);
       break;
     case kIdentity:
       return launch_ws<Pipe<WG, kIdentity>>(x, w, C, ks, bn, r, wr, rbn, out,
-                                            M, H, W, N, eps, s);
+                                            out2, M, H, W, N, eps, s);
     case kLinear:
-      return launch_ws<Pipe<WG, kLinear>>(x, w, C, ks, bn, r, wr, rbn, out, M,
-                                          H, W, N, eps, s);
+      return launch_ws<Pipe<WG, kLinear>>(x, w, C, ks, bn, r, wr, rbn, out,
+                                          out2, M, H, W, N, eps, s);
+    case kPre:
+      return launch_ws<Pipe<WG, kPre>>(x, w, C, ks, bn, r, wr, rbn, out,
+                                       out2, M, H, W, N, eps, s);
+    case kPreIdentity:
+      return launch_ws<Pipe<WG, kPreIdentity>>(x, w, C, ks, bn, r, wr, rbn,
+                                               out, out2, M, H, W, N, eps, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1143,6 +1330,207 @@ __global__ void __launch_bounds__(kSeThreads)
                *reinterpret_cast<const uint4*>(y + at0 + k * step), fs, fo);
 }
 
+// gpool_kernel: a pooled inner block's pooled bias and its conv2's norm,
+// over (B, HW cells) rows of the pooled channels g (G, rectified) and the
+// regular channels r (R, conv1's raw output), both bf16: out = relu((r +
+// bias) * scale + offset) per channel, bias = Wg [mean(g), mean(g) x
+// pool_scale, max(g)] (Wg (R, 3G) float32, torch's Linear layout, 16-byte
+// aligned), scale and offset conv2's folded norm. kGpPositions positions a
+// CTA, kGpHalf threads a position. The board: a thread owns one 16-byte
+// chunk q of a cell's G channels (G / 8 chunks, which divide kGpHalf) and
+// the cells k, k + K, ... (K = kGpHalf / (G / 8)), their loads in flight
+// together; its sums and maxima meet the other cells' in shared memory in
+// a fixed order (no atomics: a forward repeats bit for bit). The dense
+// layer: a warp four outputs at a time for both positions, its lanes
+// across the 3G inputs four at a time, Wg's rows read where they live
+// (from L2 after the first CTA), the sums by a butterfly (lane 0's order is
+// fixed). Then the output in 16-byte chunks of 8 channels, kGpBatch chunks'
+// loads in flight at once.
+constexpr int kGpPositions = 2;
+constexpr int kGpHalf = 128;
+constexpr int kGpThreads = kGpPositions * kGpHalf;
+constexpr int kGpCells = 4;  // cells a thread's loads hold in flight
+constexpr int kGpBatch = 4;
+
+// The shared floats of a CTA: the partial sums and maxima (K rows of G a
+// position), the pooled features (3G a position), the biases (R a
+// position), the scales and offsets (R each).
+inline int gpool_smem_floats(int G, int R) {
+  const int K = kGpHalf / (G / 8);
+  return kGpPositions * (2 * K * G + 3 * G + R) + 2 * R;
+}
+
+__global__ void __launch_bounds__(kGpThreads)
+    gpool_kernel(const bf16* __restrict__ g, const bf16* __restrict__ r,
+                 int B, int HW, int G, int R, const float* __restrict__ wg,
+                 float pool_scale, BatchNormArgs bn, float eps,
+                 bf16* __restrict__ out) {
+  extern __shared__ __align__(16) float s_gp[];
+  const int Q = G / 8;
+  const int K = kGpHalf / Q;
+  float* part_sum = s_gp;                              // [position][K][G]
+  float* part_max = part_sum + kGpPositions * K * G;   // [position][K][G]
+  float* pooled = part_max + kGpPositions * K * G;     // [position][3G]
+  float* bias = pooled + kGpPositions * 3 * G;         // [position][R]
+  float* scale = bias + kGpPositions * R;              // [R]
+  float* offset = scale + R;                           // [R]
+  const int tid = threadIdx.x;
+  const int half = tid / kGpHalf;
+  const int t = tid % kGpHalf;
+  const int first = blockIdx.x * kGpPositions;
+  const int count = B - first < kGpPositions ? B - first : kGpPositions;
+
+  for (int c = tid; c < R; c += kGpThreads) {
+    const float sc = bn.gamma[c] / sqrtf(bn.var[c] + eps);
+    scale[c] = sc;
+    offset[c] = (0.0f - bn.mean[c]) * sc + bn.beta[c];
+  }
+  // The board: this thread's chunk over its cells, in order.
+  if (half < count) {
+    const int q = t % Q;
+    const int k = t / Q;
+    const bf16* base =
+        g + static_cast<long long>(first + half) * HW * G + 8 * q;
+    float sum[8], top[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      sum[i] = 0.0f;
+      top[i] = -3.0e38f;
+    }
+    for (int cell0 = k; cell0 < HW; cell0 += kGpCells * K) {
+      uint4 raw[kGpCells];
+#pragma unroll
+      for (int j = 0; j < kGpCells; ++j)
+        if (cell0 + j * K < HW)
+          raw[j] = *reinterpret_cast<const uint4*>(
+              base + static_cast<long long>(cell0 + j * K) * G);
+#pragma unroll
+      for (int j = 0; j < kGpCells; ++j) {
+        if (cell0 + j * K >= HW) break;
+        const bf16* v = reinterpret_cast<const bf16*>(&raw[j]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float x = __bfloat162float(v[i]);
+          sum[i] += x;
+          top[i] = fmaxf(top[i], x);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      part_sum[(half * K + k) * G + 8 * q + i] = sum[i];
+      part_max[(half * K + k) * G + 8 * q + i] = top[i];
+    }
+  }
+  __syncthreads();
+  if (half < count) {
+    for (int c = t; c < G; c += kGpHalf) {
+      float sum = 0.0f, top = -3.0e38f;
+      for (int k = 0; k < K && k < HW; ++k) {
+        sum += part_sum[(half * K + k) * G + c];
+        top = fmaxf(top, part_max[(half * K + k) * G + c]);
+      }
+      const float mean = sum / static_cast<float>(HW);
+      pooled[half * 3 * G + c] = mean;
+      pooled[half * 3 * G + G + c] = mean * pool_scale;
+      pooled[half * 3 * G + 2 * G + c] = top;
+    }
+  }
+  __syncthreads();
+
+  // The dense layer, four outputs j0..j0+3 a warp at a time for both
+  // positions (a position past the batch reads the first's features and
+  // writes nothing).
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int inputs = 3 * G / 4;  // float4s a row
+  const float4* p0 = reinterpret_cast<const float4*>(pooled);
+  const float4* p1 =
+      reinterpret_cast<const float4*>(pooled + (count > 1 ? 3 * G : 0));
+  for (int j0 = 4 * warp; j0 < R; j0 += 4 * (kGpThreads / 32)) {
+    float s[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+    for (int k = lane; k < inputs; k += 32) {
+      float4 w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w[i] = reinterpret_cast<const float4*>(
+            wg + static_cast<long long>(j0 + i < R ? j0 + i : j0) * 3 *
+                     G)[k];
+      const float4 a0 = p0[k];
+      const float4 a1 = p1[k];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[0][i] += a0.x * w[i].x;
+        s[0][i] += a0.y * w[i].y;
+        s[0][i] += a0.z * w[i].z;
+        s[0][i] += a0.w * w[i].w;
+        s[1][i] += a1.x * w[i].x;
+        s[1][i] += a1.y * w[i].y;
+        s[1][i] += a1.z * w[i].z;
+        s[1][i] += a1.w * w[i].w;
+      }
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[0][i] += __shfl_xor_sync(0xffffffffu, s[0][i], d);
+        s[1][i] += __shfl_xor_sync(0xffffffffu, s[1][i], d);
+      }
+    }
+    if (lane < count * 4) {  // lane p * 4 + i writes output j0 + i of p
+      const int p = lane / 4;
+      const int i = lane % 4;
+      if (j0 + i < R) {
+        float v = s[0][0];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (e == lane) v = s[e / 4][e % 4];
+        bias[p * R + j0 + i] = v;
+      }
+    }
+  }
+  __syncthreads();
+
+  // The output, kGpBatch chunks a thread at a time, loads first.
+  const int chunks = R / 8;
+  const int total = count * HW * chunks;
+  for (int e0 = tid; e0 < total; e0 += kGpBatch * kGpThreads) {
+    uint4 raw[kGpBatch];
+#pragma unroll
+    for (int b = 0; b < kGpBatch; ++b) {
+      const int e = e0 + b * kGpThreads;
+      if (e < total)
+        raw[b] = *reinterpret_cast<const uint4*>(
+            r + static_cast<long long>(first) * HW * R +
+            static_cast<long long>(e) * 8);
+    }
+#pragma unroll
+    for (int b = 0; b < kGpBatch; ++b) {
+      const int e = e0 + b * kGpThreads;
+      if (e >= total) break;
+      const int p = e / (HW * chunks);
+      const int c0 = 8 * (e % chunks);
+      const __nv_bfloat162* rv =
+          reinterpret_cast<const __nv_bfloat162*>(&raw[b]);
+      uint4 res;
+      __nv_bfloat162* ov = reinterpret_cast<__nv_bfloat162*>(&res);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = c0 + 2 * i;
+        const float2 v = __bfloat1622float2(rv[i]);
+        const float v0 = (v.x + bias[p * R + c]) * scale[c] + offset[c];
+        const float v1 =
+            (v.y + bias[p * R + c + 1]) * scale[c + 1] + offset[c + 1];
+        ov[i] = __floats2bfloat162_rn(fmaxf(v0, 0.0f), fmaxf(v1, 0.0f));
+      }
+      *reinterpret_cast<uint4*>(out + static_cast<long long>(first) * HW *
+                                          R +
+                                static_cast<long long>(e) * 8) = res;
+    }
+  }
+}
+
 // pack: table rows (weight address, offset in out, C_out, C_in, taps) of
 // int64. Each layer's (C_out, C_in, taps) float32 weight becomes C_out rows
 // of padded_depth(C_in x taps) bf16 in (tap, C_in) order, zeros after
@@ -1247,11 +1635,16 @@ int fused_net_pack(const long long* table, int layers, int tiles, bf16* out,
 }
 
 // The stem: x is the (M = B*H*W, C) NHWC float32 observations, w its packed
-// bf16 weight (N rows of padded_depth(ks*ks*C)); N a multiple of 8.
+// bf16 weight (N rows of padded_depth(ks*ks*C)); N a multiple of 8. out2
+// (or null): also relu(n(out)) of the rounded output, n the norm (nbias
+// unread).
 int fused_net_conv(const float* x, const bf16* w, int C, int ks,
                    const float* bias, const float* gamma, const float* beta,
-                   const float* mean, const float* var, bf16* out, int M,
-                   int H, int W, int N, float eps, void* stream) {
+                   const float* mean, const float* var, const float* nbias,
+                   const float* ngamma, const float* nbeta,
+                   const float* nmean, const float* nvar, bf16* out,
+                   bf16* out2, int M, int H, int W, int N, float eps,
+                   void* stream) {
   if (N % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   static bool sized = false;  // above 48 KB: once, before use
   if (!sized) {
@@ -1263,10 +1656,11 @@ int fused_net_conv(const float* x, const bf16* w, int C, int ks,
   }
   const StemInput op{x, w, C, ks};
   const BatchNormArgs bn{bias, gamma, beta, mean, var};
+  const BatchNormArgs nbn{nbias, ngamma, nbeta, nmean, nvar};
   const dim3 grid((M + Stem::BM - 1) / Stem::BM, (N + kBN - 1) / kBN);
   conv_kernel<<<grid, Stem::kThreads, Stem::kSmem,
-                static_cast<cudaStream_t>(stream)>>>(op, bn, out, M, H, W, N,
-                                                     eps);
+                static_cast<cudaStream_t>(stream)>>>(op, bn, nbn, out, out2,
+                                                     M, H, W, N, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1274,28 +1668,39 @@ int fused_net_conv(const float* x, const bf16* w, int C, int ks,
 // bf16, w its packed (N, ks*ks*C) weight, C and N multiples of 64.
 // residual (a Skip): add to relu's input the 1x1 projection of r ((M, N)
 // bf16, packed weight wr (N, N)) with its BatchNorm (1; bm 128 only), or r
-// itself (2; wr and rbn unread); 3: no skip and no ReLU. bm: the tile's
-// cells, 128 or 192.
+// itself (2; wr and rbn unread); 3: no skip and no ReLU. 4 and 5: the
+// pre-activation epilogue, conv(x) + bias (the bias slot of every one of
+// bn's pointers read), plus r itself (5), rounded into out, and relu(n(out))
+// into out2, n the norm in rbn (its bias unread), a null out or out2 left
+// unwritten, not both; out2 is unread in the other modes. bm: the tile's
+// cells, 128 or 192; bn: its filters, 128 or (residual 0, 4 or 5) 96.
 int fused_net_conv_pipelined(
     const bf16* x, const bf16* w, int C, int ks, const float* bias,
     const float* gamma, const float* beta, const float* mean,
     const float* var, const bf16* r, const bf16* wr, const float* rbias,
     const float* rgamma, const float* rbeta, const float* rmean,
-    const float* rvar, int residual, bf16* out, int M, int H, int W, int N,
-    float eps, int bm, void* stream) {
+    const float* rvar, int residual, bf16* out, bf16* out2, int M, int H,
+    int W, int N, float eps, int bm, int bn_tile, void* stream) {
   if (C % kBK != 0 || N % kBK != 0 || residual < kNoSkip ||
-      residual > kLinear)
+      residual > kPreIdentity ||
+      (residual < kPre ? out == nullptr : out == nullptr && out2 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const BatchNormArgs bn{bias, gamma, beta, mean, var};
   const BatchNormArgs rbn{rbias, rgamma, rbeta, rmean, rvar};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (bm == 128)
-    err = launch_ws_skip<2>(x, w, C, ks, bn, r, wr, rbn, residual, out, M, H,
-                            W, N, eps, s);
-  else if (bm == 192)
-    err = launch_ws_skip<3>(x, w, C, ks, bn, r, wr, rbn, residual, out, M, H,
-                            W, N, eps, s);
+  if (bm == 128 && bn_tile == kBN)
+    err = launch_ws_skip<2, kBN>(x, w, C, ks, bn, r, wr, rbn, residual, out,
+                                 out2, M, H, W, N, eps, s);
+  else if (bm == 192 && bn_tile == kBN)
+    err = launch_ws_skip<3, kBN>(x, w, C, ks, bn, r, wr, rbn, residual, out,
+                                 out2, M, H, W, N, eps, s);
+  else if (bm == 128 && bn_tile == 96)
+    err = launch_ws_skip<2, 96>(x, w, C, ks, bn, r, wr, rbn, residual, out,
+                                out2, M, H, W, N, eps, s);
+  else if (bm == 192 && bn_tile == 96)
+    err = launch_ws_skip<3, 96>(x, w, C, ks, bn, r, wr, rbn, residual, out,
+                                out2, M, H, W, N, eps, s);
   return static_cast<int>(err);
 }
 
@@ -1327,6 +1732,33 @@ int fused_net_se(const bf16* x, const bf16* y, int B, int HW, int C, int R,
   se_kernel<<<(B + kSePositions - 1) / kSePositions, kSeThreads, bytes,
               static_cast<cudaStream_t>(stream)>>>(x, y, B, HW, C, R, w1, b1,
                                                    w2, b2, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A pooled inner block's pooled bias and conv2's norm: g (B * HW, G) and r
+// (B * HW, R) bf16, out (B * HW, R) bf16 = relu((r + Wg [mean(g), mean(g)
+// x pool_scale, max(g)]) * scale + offset), Wg (R, 3G) float32, 16-byte
+// aligned; scale and offset folded from gamma, beta, mean, var and eps. G a
+// multiple of 8 whose G / 8 divides 128, R a multiple of 8.
+int fused_net_gpool(const bf16* g, const bf16* r, int B, int HW, int G,
+                    int R, const float* wg, float pool_scale,
+                    const float* gamma, const float* beta, const float* mean,
+                    const float* var, float eps, bf16* out, void* stream) {
+  if (B < 1 || HW < 1 || G < 8 || G % 8 != 0 || kGpHalf % (G / 8) != 0 ||
+      R < 8 || R % 8 != 0 || reinterpret_cast<uintptr_t>(wg) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = gpool_smem_floats(G, R) * static_cast<int>(sizeof(float));
+  static int sized = 0;  // the dynamic shared memory allowed so far
+  if (bytes > 48 * 1024 && bytes > sized) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gpool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = bytes;
+  }
+  const BatchNormArgs bn{gamma, gamma, beta, mean, var};
+  gpool_kernel<<<(B + kGpPositions - 1) / kGpPositions, kGpThreads, bytes,
+                 static_cast<cudaStream_t>(stream)>>>(
+      g, r, B, HW, G, R, wg, pool_scale, bn, eps, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,6 +17,13 @@ io/checkpoint.py reads from disk without JAX):
   with a squeeze-excitation gate (``se_ratio > 0``, the port's own) holds
   its two dense layers as SqueezeExcite_0/Dense_0 and Dense_1, in the
   params and the momentum (they have no statistics).
+- A net of nested bottleneck blocks (``mid_filters > 0``, the port's own)
+  holds NestedBottleneckBlock_i in their place: NormConv_0 (the 1x1 conv
+  down), InnerBlock_0 and InnerBlock_1, NormConv_1 (the 1x1 conv up);
+  each InnerBlock_j holds NormConv_0 and NormConv_1, and a pooled one
+  GlobalPoolBias_0 (Conv_0, BatchNorm_0, Dense_0 with a kernel alone)
+  beside them. A NormConv's BatchNorm_0 normalises its input, ahead of its
+  Conv_0. The trunk's final norm is BatchNorm_0 at the top level.
 - The optimizer state of ``optax.sgd(schedule, momentum)`` is the tuple
   ``(TraceState(trace), ScaleByScheduleState(count))``, serialised as
   ``{"0": {"trace": <params-shaped tree>}, "1": {"count": int32}}``; with
@@ -34,6 +41,7 @@ import torch
 from custom_alphazero_tpu_torch.config import ModelConfig, resolve_device
 from custom_alphazero_tpu_torch.models.policy_value import (
     ConvBlock,
+    GlobalPoolBias,
     PolicyValueNet,
 )
 from custom_alphazero_tpu_torch.runtime.train import TrainState
@@ -56,9 +64,27 @@ def _conv_block(block: ConvBlock, path: Tuple[str, ...]):
     yield path + ("BatchNorm_0", "bias"), block.bn.bias, "vec"
 
 
+def _nested_blocks(net: PolicyValueNet):
+    """(module with ``conv`` and ``bn``, Flax path) of every nested
+    bottleneck block's conv, in forward order."""
+    for i, block in enumerate(net.blocks):
+        path = (f"NestedBottleneckBlock_{i}",)
+        yield block.pre, path + ("NormConv_0",)
+        for j, inner in enumerate(block.inner):
+            inner_path = path + (f"InnerBlock_{j}",)
+            yield inner.conv1, inner_path + ("NormConv_0",)
+            if inner.gpool is not None:
+                yield inner.gpool, inner_path + ("GlobalPoolBias_0",)
+            yield inner.conv2, inner_path + ("NormConv_1",)
+        yield block.post, path + ("NormConv_1",)
+
+
 def _conv_blocks(net: PolicyValueNet) -> Iterator[Tuple[ConvBlock, tuple]]:
     yield net.stem, ("ConvBlock_0",)
-    for i, block in enumerate(net.blocks):
+    if net.trunk_norm is not None:
+        yield from _nested_blocks(net)
+    for i, block in enumerate(net.blocks if net.trunk_norm is None
+                              else ()):
         yield block.conv1, (f"ResidualBlock_{i}", "ConvBlock_0")
         yield block.conv2, (f"ResidualBlock_{i}", "ConvBlock_1")
         if block.proj is not None:
@@ -76,8 +102,13 @@ def _param_layout(net: PolicyValueNet):
     """(Flax path, torch parameter, kind) of every parameter."""
     for block, path in _conv_blocks(net):
         yield from _conv_block(block, path)
+        if isinstance(block, GlobalPoolBias):
+            yield path + ("Dense_0", "kernel"), block.dense.weight, "dense"
+    if net.trunk_norm is not None:
+        yield ("BatchNorm_0", "scale"), net.trunk_norm.weight, "vec"
+        yield ("BatchNorm_0", "bias"), net.trunk_norm.bias, "vec"
     for i, block in enumerate(net.blocks):
-        if block.se is not None:
+        if getattr(block, "se", None) is not None:
             gate = (f"ResidualBlock_{i}", "SqueezeExcite_0")
             yield from _dense(block.se.dense1, gate + ("Dense_0",))
             yield from _dense(block.se.dense2, gate + ("Dense_1",))
@@ -92,6 +123,9 @@ def _stats_layout(net: PolicyValueNet):
     for block, path in _conv_blocks(net):
         yield path + ("BatchNorm_0", "mean"), block.bn.running_mean, "vec"
         yield path + ("BatchNorm_0", "var"), block.bn.running_var, "vec"
+    if net.trunk_norm is not None:
+        yield ("BatchNorm_0", "mean"), net.trunk_norm.running_mean, "vec"
+        yield ("BatchNorm_0", "var"), net.trunk_norm.running_var, "vec"
 
 
 def _get(tree: Mapping[str, Any], path: Tuple[str, ...]):
@@ -118,8 +152,28 @@ def load_jax_variables(net: PolicyValueNet, params: Mapping[str, Any],
     """Fill ``net``'s parameters and running statistics, in place. Raises
     ValueError where a residual block of ``params`` has a projection
     (ConvBlock_2) or a squeeze-excitation gate (SqueezeExcite_0) and
-    ``net``'s has none, or the reverse."""
-    for i, block in enumerate(net.blocks):
+    ``net``'s has none, or the reverse, and where ``params`` has nested
+    bottleneck blocks or pooled inner blocks that ``net`` lacks, or the
+    reverse."""
+    nested = net.trunk_norm is not None
+    if nested != any(key.startswith("NestedBottleneckBlock_")
+                     for key in params):
+        raise ValueError(
+            f"the variables {'lack' if nested else 'have'} nested bottleneck "
+            f"blocks (NestedBottleneckBlock_i) and the net "
+            f"{'has' if nested else 'lacks'} them (mid_filters="
+            f"{net.cfg.mid_filters})")
+    for i, block in enumerate(net.blocks if nested else ()):
+        saved = params[f"NestedBottleneckBlock_{i}"].get("InnerBlock_0", {})
+        have = block.inner[0].gpool is not None
+        if ("GlobalPoolBias_0" in saved) != have:
+            raise ValueError(
+                f"NestedBottleneckBlock_{i}: the variables "
+                f"{'lack' if have else 'have'} a pooled inner block "
+                f"(GlobalPoolBias_0) and the net's block "
+                f"{'has' if have else 'lacks'} one (gpool_blocks="
+                f"{net.cfg.gpool_blocks})")
+    for i, block in enumerate(net.blocks if not nested else ()):
         saved = params.get(f"ResidualBlock_{i}", {})
         for key, what, have, option in (
                 ("ConvBlock_2", "a projection", block.proj is not None,

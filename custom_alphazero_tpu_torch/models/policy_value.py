@@ -10,7 +10,10 @@ projection: each block adds its input itself, as AlphaGo Zero's and
 AlphaZero's blocks do (Silver et al. 2017, 2018, Methods).
 ``cfg.se_ratio > 0`` (the port's own, identity blocks only) gates each
 block's second conv output with Leela Chess Zero's squeeze-excitation
-(``SqueezeExcite``) before the add.
+(``SqueezeExcite``) before the add. ``cfg.mid_filters > 0`` (the port's
+own) builds KataGo's pre-activation nested bottleneck blocks instead
+(``NestedBottleneckBlock``; ``cfg.gpool_blocks`` of them pooled), then a
+final BatchNorm and ReLU (``trunk_norm``) before the heads.
 
 Input is NHWC like the JAX net, and both heads flatten in NHWC order so the
 Flax dense kernels carry over unchanged (models/convert.py). ``BatchNorm``
@@ -25,6 +28,8 @@ agree with JAX only to a looser bound (tests/test_torch_port_net.py).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
@@ -169,6 +174,93 @@ class ResidualBlock(nn.Module):
         return torch.relu(skip + y)
 
 
+class NormConv(nn.Module):
+    """A pre-activation conv: conv(relu(BN(x))), the BatchNorm over the
+    input's channels and a bias on the conv (KataGo's NormActConv, with the
+    port's BatchNorm and conv bias)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int):
+        super().__init__()
+        self.bn = BatchNorm(cin)
+        self.conv = nn.Conv2d(cin, cout, kernel, padding=kernel // 2)
+
+    def activate(self, x):
+        return torch.relu(self.bn(x))
+
+    def forward(self, x):
+        return self.conv(self.activate(x))
+
+
+def global_pool(g: torch.Tensor) -> torch.Tensor:
+    """KataGo's KataGPool over a full board of NCHW ``g``: per channel the
+    mean, the mean scaled by (sqrt(cells) - 14) / 10, and the max, (B, 3C)."""
+    cells = g.shape[2] * g.shape[3]
+    mean = g.mean(dim=(2, 3))
+    return torch.cat([mean, mean * ((math.sqrt(cells) - 14.0) / 10.0),
+                      g.amax(dim=(2, 3))], dim=1)
+
+
+class GlobalPoolBias(nn.Module):
+    """A pooled inner block's pooled branch (KataGo's ResBlock with
+    ``c_gpool``): g = relu(BN(conv(u))) of the block's activated input u
+    (``conv``, ``bn``: conv, then BatchNorm), pooled by ``global_pool`` and
+    mapped by ``dense`` (no bias) to a bias a channel of the regular
+    branch."""
+
+    def __init__(self, cin: int, pooled: int, regular: int):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, pooled, 3, padding=1)
+        self.bn = BatchNorm(pooled)
+        self.dense = nn.Linear(3 * pooled, regular, bias=False)
+
+    def forward(self, u):
+        g = torch.relu(self.bn(self.conv(u)))
+        return self.dense(global_pool(g))[:, :, None, None]
+
+
+class InnerBlock(nn.Module):
+    """a + conv2(relu(BN(conv1(relu(BN(a)))))) at ``mid`` channels; with
+    ``pooled`` > 0, conv1 gives mid - pooled channels, to which the pooled
+    branch (``gpool``, else None) of the same activated input adds its
+    channel bias before conv2's norm."""
+
+    def __init__(self, mid: int, pooled: int = 0):
+        super().__init__()
+        regular = mid - pooled
+        self.conv1 = NormConv(mid, regular, 3)
+        self.gpool = (GlobalPoolBias(mid, pooled, regular) if pooled
+                      else None)
+        self.conv2 = NormConv(regular, mid, 3)
+
+    def forward(self, a):
+        u = self.conv1.activate(a)
+        r = self.conv1.conv(u)
+        if self.gpool is not None:
+            r = r + self.gpool(u)
+        return a + self.conv2(r)
+
+
+class NestedBottleneckBlock(nn.Module):
+    """KataGo's ``bottlenest2`` block, pre-activation throughout: x +
+    post(inner2(inner1(pre(x)))), ``pre`` a 1x1 NormConv from ``filters``
+    to ``mid``, two ``InnerBlock``s, ``post`` a 1x1 NormConv back; with
+    ``pooled`` > 0 the first inner block pools (``bottlenest2gpool``). The
+    skip stream x is never normalised or rectified."""
+
+    def __init__(self, filters: int, mid: int, pooled: int = 0):
+        super().__init__()
+        self.pre = NormConv(filters, mid, 1)
+        self.inner = nn.ModuleList([InnerBlock(mid, pooled),
+                                    InnerBlock(mid)])
+        self.post = NormConv(mid, filters, 1)
+
+    def forward(self, x):
+        y = self.pre(x)
+        for inner in self.inner:
+            y = inner(y)
+        return x + self.post(y)
+
+
 class PolicyValueNet(nn.Module):
     """NHWC observations -> (policy logits (B, A) float32, value (B,))."""
 
@@ -180,11 +272,20 @@ class PolicyValueNet(nn.Module):
         self.cfg = cfg
         h, w = board_hw
         self.stem = ConvBlock(in_channels, cfg.filters)
-        self.blocks = nn.ModuleList(
-            [ResidualBlock(cfg.filters, cfg.residual_projection,
-                           cfg.se_ratio)
-             for _ in range(cfg.depth)]
-        )
+        if cfg.mid_filters:
+            self.blocks = nn.ModuleList(
+                [NestedBottleneckBlock(
+                    cfg.filters, cfg.mid_filters,
+                    cfg.gpool_filters if i + 1 in cfg.gpool_blocks else 0)
+                 for i in range(cfg.depth)])
+            self.trunk_norm = BatchNorm(cfg.filters)
+        else:
+            self.blocks = nn.ModuleList(
+                [ResidualBlock(cfg.filters, cfg.residual_projection,
+                               cfg.se_ratio)
+                 for _ in range(cfg.depth)]
+            )
+            self.trunk_norm = None
         self.policy_conv = ConvBlock(cfg.filters, cfg.policy_filters, 1)
         self.policy_dense = nn.Linear(cfg.policy_filters * h * w, num_actions)
         self.value_conv = ConvBlock(cfg.filters, cfg.value_filters, 1)
@@ -200,6 +301,8 @@ class PolicyValueNet(nn.Module):
             x = self.stem(obs_nhwc.permute(0, 3, 1, 2))  # NHWC -> NCHW
             for block in self.blocks:
                 x = block(x)
+            if self.trunk_norm is not None:
+                x = torch.relu(self.trunk_norm(x))
             p = self.policy_conv(x).permute(0, 2, 3, 1).flatten(1)
             v = self.value_conv(x).permute(0, 2, 3, 1).flatten(1)
             v = torch.relu(self.value_dense1(v))

@@ -18,7 +18,7 @@ with nvcc by ``ops/_build.py`` on first use and bound through ctypes):
   takes the pipelined kernel: a producer thread streams each K step's
   shifted cells (TMA's im2col mode, zeros past the board's edges) and
   weight box into a ring of shared-memory stages that consumer warpgroups
-  read with wgmma, paced by mbarriers; ``conv_plan`` picks its tile by the
+  read with wgmma, paced by mbarriers; ``conv_tile`` picks its tile by the
   GEMM's shape. The stem reads the float32 observations, rounds them to
   bf16 on load and gathers both operands with masked loads in every
   thread. The epilogue, in float32 from the live parameters and running
@@ -39,6 +39,31 @@ with nvcc by ``ops/_build.py`` on first use and bound through ctypes):
   straddle the conv's tiles, so the conv's epilogue cannot take the mean;
 - ``heads``: the policy conv (2 filters) and the value conv (1 filter) over
   the trunk's output with their BatchNorm and ReLU, written in float32.
+
+A nested bottleneck tower (``mid_filters`` > 0, KataGo's b18c384nbt
+blocks; ``nested``) is pre-activation: each conv reads relu(n(y)) of the
+tensor y before it, n that conv's own BatchNorm. So a conv's epilogue
+applies the next conv's norm: it adds the conv's bias (and a skip from two
+or four convs back: the inner stream to an inner block's second conv, the
+block input to the 1x1 conv up, as the identity tile), rounds the sum once
+to bf16 as the skip stream and writes relu(n_next) of that rounded value
+as the next conv's input: two outputs from one launch (``conv_pre``, the
+pipelined kernel's pre-activation modes; the stem writes its second output
+the same way). A conv whose raw output nothing reads (an inner block's
+first) folds its bias into the next norm as a classic epilogue. The 1x1
+convs down (384 -> 192) and up (192 -> 384) are whole layers of one tap,
+and C_in and C_out differ along the block (``trunk_convs``); an output of
+192 filters takes 96-filter tiles (``conv_tile``). In a pooled block
+(``gpool_blocks``) the first inner conv writes its regular channels raw,
+the pooled branch's conv its rectified pooled channels, and ``gpool``:
+- ``gpool``: the board mean, the scaled mean and the max of the pooled
+  channels over each position's cells (summed in a fixed order, so a
+  forward repeats bit for bit), the dense layer from its live float32
+  weight to a channel bias of the regular channels, then relu(n(r + bias))
+  with the second inner conv's norm n, written bf16: the pooled means
+  straddle the conv's tiles, as the squeeze-excitation gate's do.
+After the last block the trunk's own norm and ReLU (``trunk_norm``) come
+from the last conv's second output.
 
 The dense layers, ``tanh`` and the softmax stay plain matrix products in
 float32: the policy logits and the value as the module path computes them,
@@ -80,6 +105,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import math
+from types import SimpleNamespace
 from typing import List, Optional, Tuple, Union
 
 import torch
@@ -97,12 +124,20 @@ from custom_alphazero_tpu_torch.ops import _build
 K_STEP = 64
 # The conv kernels' tile width in filters (csrc/fused_net.cu's kBN).
 TILE_FILTERS = 128
+# The pipelined kernel's narrower tile, for outputs that are a multiple of
+# it and not of TILE_FILTERS (a nested bottleneck tower's 192 filters),
+# in its modes without a projection.
+NARROW_FILTERS = 96
 # The pack kernel's tile of (C_out, K) elements.
 PACK_TILE = 32
 # The widest net whose gates the se kernel takes: 128 threads a position,
 # one 16-byte chunk of 8 channels each (csrc/fused_net.cu's kSeHalf); the
 # filters divide it.
 SE_MAX_FILTERS = 1024
+# The widest pooled branch the gpool kernel takes: 128 threads a position,
+# one 16-byte chunk of 8 pooled channels each (csrc/fused_net.cu's kGpHalf);
+# the pooled channels divide it.
+GPOOL_MAX_FILTERS = 1024
 # The shared memory an H100's SM gives one CTA, which holds both of a
 # gate's dense weights and its sums (``se_smem_bytes``).
 SE_SMEM_LIMIT = 227 * 1024
@@ -131,6 +166,28 @@ def se_fits(net: PolicyValueNet) -> bool:
             and se_smem_bytes(filters, hidden) <= SE_SMEM_LIMIT)
 
 
+def nested(net: PolicyValueNet) -> bool:
+    """Whether ``net``'s blocks are nested bottlenecks (``mid_filters``)."""
+    return net.trunk_norm is not None
+
+
+def nested_fits(net: PolicyValueNet) -> bool:
+    """Whether N1 takes a nested bottleneck tower (a net of classic blocks:
+    True): the mid width and, in a pooled block, the regular and the pooled
+    channels multiples of K_STEP, as every conv's C_in and C_out must be,
+    and pooled channels that divide GPOOL_MAX_FILTERS (the gpool kernel's
+    threads each take a 16-byte chunk of a cell's pooled channels)."""
+    if not nested(net):
+        return True
+    cfg = net.cfg
+    widths = [cfg.mid_filters]
+    if cfg.gpool_blocks:
+        widths += [cfg.gpool_filters, cfg.mid_filters - cfg.gpool_filters]
+        if GPOOL_MAX_FILTERS % cfg.gpool_filters:
+            return False
+    return all(width % K_STEP == 0 for width in widths)
+
+
 def applies(net: PolicyValueNet, obs: torch.Tensor) -> bool:
     """Whether ``make_evaluate_fn`` takes the fused forward: CUDA
     observations and a bf16 net in eval mode (its ``evaluate`` runs under
@@ -139,20 +196,42 @@ def applies(net: PolicyValueNet, obs: torch.Tensor) -> bool:
     slice) and, in a net with squeeze-excitation gates, fit the ``se``
     kernel (``se_fits``: its threads each take a 16-byte chunk of a cell's
     channels, and an SM's shared memory holds the gate's dense weights).
-    Anything else (the training forward, float32 nets, CPU tensors, other
-    widths) runs ``net(obs)``. The gates' dense weights are read where they
-    live, at each launch, like the convs' parameters."""
+    A nested bottleneck tower also needs its mid width and, where a block
+    pools, its regular and pooled channels to be multiples of K_STEP, the
+    pooled ones dividing GPOOL_MAX_FILTERS (``nested_fits``): b18c384nbt's
+    192, 128 and 64 fit; a mid width of 96, 32 or 192 pooled channels run
+    the module path. Anything else (the
+    training forward, float32 nets, CPU tensors, other widths) runs
+    ``net(obs)``. The gates' and the pooled biases' dense weights are read
+    where they live, at each launch, like the convs' parameters."""
     return (obs.device.type == "cuda"
             and net.cfg.compute_dtype == "bfloat16" and not net.training
-            and net.cfg.filters % K_STEP == 0 and se_fits(net))
+            and net.cfg.filters % K_STEP == 0 and se_fits(net)
+            and nested_fits(net))
 
 
 def trunk_convs(net: PolicyValueNet):
-    """The trunk's ConvBlocks in the order ``pack`` lays them out: the stem,
-    then conv1, conv2 and (where the block has one) proj of each residual
-    block. A squeeze-excitation gate (``block.se``) has no row: the ``se``
-    kernel reads its dense weights from the live parameters."""
+    """The trunk's convs (modules with ``conv``) in the order ``pack`` lays
+    them out: the stem, then conv1, conv2 and (where the block has one)
+    proj of each residual block. A squeeze-excitation gate (``block.se``)
+    has no row: the ``se`` kernel reads its dense weights from the live
+    parameters. A nested bottleneck block's rows, in forward order: the 1x1
+    conv down (``pre``), each inner block's conv1, in a pooled one its
+    pooled branch's conv (``gpool``, its C_out the pooled channels where
+    conv1's is the regular ones), and conv2, then the 1x1 conv up
+    (``post``); C_in and C_out differ along it (384 -> 192 -> 128 and 64 ->
+    192 -> 384 in b18c384nbt). The pooled bias's dense weight has no row."""
     convs = [net.stem]
+    if nested(net):
+        for block in net.blocks:
+            convs.append(block.pre)
+            for inner in block.inner:
+                convs.append(inner.conv1)
+                if inner.gpool is not None:
+                    convs.append(inner.gpool)
+                convs.append(inner.conv2)
+            convs.append(block.post)
+        return convs
     for block in net.blocks:
         convs += [block.conv1, block.conv2]
         if block.proj is not None:
@@ -176,31 +255,40 @@ def conv_grid(bm: int, m: int, n: int) -> Tuple[int, int]:
     return -(-m // bm), -(-n // TILE_FILTERS)
 
 
-def conv_plan(m: int, n: int, cin: int, taps: int, sms: int,
-              projection: bool = False) -> int:
-    """The board cells of the pipelined kernel's tile (by TILE_FILTERS
-    filters) for a block conv with an (m, n) output and K = taps x ``cin``
-    on ``sms`` SMs.
+def conv_tile(m: int, n: int, cin: int, taps: int, sms: int,
+              projection: bool = False) -> Tuple[int, int]:
+    """The pipelined kernel's tile, (board cells, filters), for a block conv
+    with an (m, n) output and K = taps x ``cin`` on ``sms`` SMs.
 
-    A conv with a projection's second accumulator takes 128 (two
-    warpgroups: one alone on an SM ran it at half the rate). Else, of 128
-    and 192 cells (two and three warpgroups sharing each weight stage), the
-    tile whose last round of CTAs ends first by the cost model above. At
-    c4-r5's self-play shape (43,008 x 128, K 1,152) 192-cell tiles take 2
-    rounds where 128 take 3; at the 19 x 256 net's B=256 (10,752 x 256, K
-    2,304) 112 tiles of 192 take one round where 168 of 128 take two; at
-    c4-r5's arena batch (10,752 x 128) both take one round, and 84 tiles of
-    128 finish before 56 of 192."""
+    A conv with a projection's second accumulator takes 128 x TILE_FILTERS
+    (two warpgroups: one alone on an SM ran it at half the rate). Else, of
+    128 and 192 cells (two and three warpgroups sharing each weight stage)
+    by TILE_FILTERS filters, and by NARROW_FILTERS too where ``n`` is a
+    multiple of NARROW_FILTERS and not of TILE_FILTERS, the tile whose last
+    round of CTAs ends first by the cost model above (the first such in that
+    order). At c4-r5's self-play shape (43,008 x 128, K 1,152) 192-cell
+    tiles take 2 rounds where 128 take 3; at the 19 x 256 net's B=256
+    (10,752 x 256, K 2,304) 112 tiles of 192 take one round where 168 of 128
+    take two; at c4-r5's arena batch (10,752 x 128) both take one round, and
+    84 tiles of 128 finish before 56 of 192. The nested bottleneck tower's
+    convs take the same model with their own C_in, C_out and taps: its 1x1
+    convs (K 384 or 192) and its 3x3 convs of 192 or 128 inputs; at
+    b18c384nbt's B=256 (10,752 x 192, K 1,728) 112 tiles of 192 x 96 take
+    one round, each a quarter less work than a half-empty 192 x 128
+    tile."""
     if projection:
-        return 128
+        return 128, TILE_FILTERS
+    widths = ((TILE_FILTERS, NARROW_FILTERS)
+              if n % TILE_FILTERS and n % NARROW_FILTERS == 0
+              else (TILE_FILTERS,))
     best = None
-    for bm, unit in UNIT_US.items():
-        gx, gy = conv_grid(bm, m, n)
-        rounds = -(-gx * gy // sms)
-        time = rounds * (ROUND_US + unit * bm * TILE_FILTERS * taps * cin
-                         / 1e6)
-        if best is None or time < best[0]:
-            best = (time, bm)
+    for bn in widths:
+        for bm, unit in UNIT_US.items():
+            gx, gy = -(-m // bm), -(-n // bn)
+            rounds = -(-gx * gy // sms)
+            time = rounds * (ROUND_US + unit * bm * bn * taps * cin / 1e6)
+            if best is None or time < best[0]:
+                best = (time, (bm, bn))
     return best[1]
 
 
@@ -277,6 +365,83 @@ def _gate_plain(x: torch.Tensor, y: torch.Tensor, se) -> torch.Tensor:
             + o[:, :, None, None])
 
 
+def _norm_plain(x: torch.Tensor, bn) -> torch.Tensor:
+    """A pre-activation conv's eval-mode BatchNorm and ReLU on float32 NCHW
+    ``x``, as the kernels fold it: relu(x * scale + offset), scale = gamma /
+    sqrt(var + eps), offset = (-mean) * scale + beta."""
+    scale = bn.weight / torch.sqrt(bn.running_var + bn.eps)
+    offset = (-bn.running_mean) * scale + bn.bias
+    return torch.relu(x * scale[:, None, None] + offset[:, None, None])
+
+
+def pool_scale(cells: int) -> float:
+    """KataGPool's factor of the scaled mean, (sqrt(cells) - 14) / 10,
+    rounded to float32 as the ``gpool`` kernel takes it."""
+    return float(torch.tensor((math.sqrt(cells) - 14.0) / 10.0,
+                              dtype=torch.float32))
+
+
+def _gpool_plain(r: torch.Tensor, g: torch.Tensor, inner) -> torch.Tensor:
+    """A pooled inner block's pooled bias and conv2's norm, in float32 as
+    the ``gpool`` kernel computes them: relu(n(r + W [mean(g), mean(g) x
+    pool_scale, max(g)])) over NCHW r (the regular channels) and g (the
+    pooled ones, rectified), n conv2's BatchNorm."""
+    g = g.float()
+    cells = g.shape[2] * g.shape[3]
+    mean = g.sum(dim=(2, 3)) / cells
+    pooled = torch.cat([mean, mean * pool_scale(cells), g.amax(dim=(2, 3))],
+                       dim=1)
+    bias = pooled @ inner.gpool.dense.weight.t()
+    return _norm_plain(r.float() + bias[:, :, None, None], inner.conv2.bn)
+
+
+def _nested_plain(net: PolicyValueNet, x: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The nested bottleneck tower after the stem, as its launches compute
+    it: each conv's float32 sums plus its bias (and a skip two or four
+    convs back), rounded once; where the next conv reads it, the rounded
+    tensor's norm and ReLU, rounded again (the dual-output epilogue). An
+    inner block's first conv, whose raw output nothing else reads, folds its
+    bias into the next norm as a classic conv's epilogue does. Returns the
+    rounded relu(n(x)) of the last block's output, which the heads read."""
+    def bias(z, block):
+        return z + block.conv.bias[:, None, None]
+
+    def act(z, bn):
+        return _norm_plain(z.to(dtype).float(), bn).to(dtype)
+
+    raw = x
+    xa = act(x.float(), net.blocks[0].pre.bn)
+    for i, block in enumerate(net.blocks):
+        after = (net.blocks[i + 1].pre.bn if i + 1 < len(net.blocks)
+                 else net.trunk_norm)
+        a = bias(_conv_plain(xa, block.pre, dtype), block.pre).to(dtype)
+        u = act(a.float(), block.inner[0].conv1.bn)
+        for j, inner in enumerate(block.inner):
+            if inner.gpool is not None:
+                r = bias(_conv_plain(u, inner.conv1, dtype),
+                         inner.conv1).to(dtype)
+                g = torch.relu(_epilogue_plain(_conv_plain(
+                    u, inner.gpool, dtype), inner.gpool)).to(dtype)
+                t = _gpool_plain(r, g, inner).to(dtype)
+            else:
+                t = torch.relu(_epilogue_plain(
+                    _conv_plain(u, inner.conv1, dtype),
+                    SimpleNamespace(conv=inner.conv1.conv,
+                                    bn=inner.conv2.bn))).to(dtype)
+            z = bias(_conv_plain(t, inner.conv2, dtype), inner.conv2) + (
+                a.float())
+            if j + 1 < len(block.inner):
+                a = z.to(dtype)
+                u = act(a.float(), block.inner[j + 1].conv1.bn)
+            else:
+                u = act(z, block.post.bn)
+        z = bias(_conv_plain(u, block.post, dtype), block.post) + raw.float()
+        raw = z.to(dtype)
+        xa = act(z, after)
+    return xa
+
+
 def forward_plain(net: PolicyValueNet, obs: torch.Tensor):
     """The fused forward in plain PyTorch, with the kernels' arithmetic:
     operands rounded to the net's compute dtype, float32 sums and
@@ -289,7 +454,9 @@ def forward_plain(net: PolicyValueNet, obs: torch.Tensor):
     x = obs.permute(0, 3, 1, 2)
     x = torch.relu(_epilogue_plain(_conv_plain(x, net.stem, dtype),
                                    net.stem)).to(dtype)
-    for block in net.blocks:
+    if nested(net):
+        x = _nested_plain(net, x, dtype)
+    for block in net.blocks if not nested(net) else ():
         y = torch.relu(_epilogue_plain(_conv_plain(x, block.conv1, dtype),
                                        block.conv1)).to(dtype)
         if block.se is not None:
@@ -325,16 +492,19 @@ def _lib():
         lib = _build.load("fused_net")
         ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.fused_net_pack.argtypes = [ptr, i, i, ptr, ptr]
-        lib.fused_net_conv.argtypes = ([ptr, ptr, i, i] + [ptr] * 6
+        lib.fused_net_conv.argtypes = ([ptr, ptr, i, i] + [ptr] * 12
                                        + [i, i, i, i, f, ptr])
         lib.fused_net_conv_pipelined.argtypes = (
-            [ptr, ptr, i, i] + [ptr] * 12 + [i, ptr, i, i, i, i, f, i, ptr])
+            [ptr, ptr, i, i] + [ptr] * 12
+            + [i, ptr, ptr, i, i, i, i, f, i, i, ptr])
         lib.fused_net_heads.argtypes = ([ptr, i, i] + [ptr] * 6 + [i]
                                         + [ptr] * 6 + [i, f, ptr, ptr, ptr])
         lib.fused_net_se.argtypes = [ptr, ptr, i, i, i, i] + [ptr] * 6
+        lib.fused_net_gpool.argtypes = ([ptr, ptr, i, i, i, i, ptr, f]
+                                        + [ptr] * 4 + [f, ptr, ptr])
         for fn in (lib.fused_net_pack, lib.fused_net_conv,
                    lib.fused_net_conv_pipelined, lib.fused_net_heads,
-                   lib.fused_net_se):
+                   lib.fused_net_se, lib.fused_net_gpool):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -366,6 +536,13 @@ def _bn_args(block: ConvBlock):
                                         bn.running_mean, bn.running_var))
 
 
+def _norm_args(bn):
+    """A following BatchNorm as the kernels' BatchNormArgs (its ``bias``
+    slot unread: the conv's own bias is added before the norm)."""
+    return tuple(t.data_ptr() for t in (bn.bias, bn.weight, bn.bias,
+                                        bn.running_mean, bn.running_var))
+
+
 def pack(table: torch.Tensor, out: torch.Tensor, rows) -> None:
     """Launch ``pack`` over the layers of the table (one launch), whose
     rows on the host are ``rows``: a block a (PACK_TILE x PACK_TILE) tile of
@@ -381,36 +558,42 @@ def pack(table: torch.Tensor, out: torch.Tensor, rows) -> None:
 def conv(x: torch.Tensor, w: torch.Tensor, block: ConvBlock, hw, out,
          residual: Union[None, torch.Tensor,
                          Tuple[torch.Tensor, torch.Tensor, ConvBlock]] = None,
-         relu: bool = True) -> None:
+         relu: bool = True, act=None) -> None:
     """Launch one conv layer on NHWC ``x``, (B, H, W, C_in) or its
     (M, C_in) rows, into (M, N) bf16 ``out``; ``w`` is the layer's packed
     weight (``pack_layout``). The stem (float32 ``x``, no ``residual``)
     takes its own kernel; a block conv (bf16 ``x``) the pipelined kernel on
-    ``conv_plan``'s tile. ``residual``, added before the ReLU: the block
+    ``conv_tile``'s tile. ``residual``, added before the ReLU: the block
     input ((M, N) bf16) of an identity block, or (block input, its packed
     1x1 weight, the proj ConvBlock) of a block with a projection.
     ``relu`` False (a block conv without ``residual``): the output stops
-    after the BatchNorm, a gated block's second conv."""
+    after the BatchNorm, a gated block's second conv. ``act`` (the stem
+    only): (an (M, N) bf16 tensor, a BatchNorm) that also gets relu(n(out))
+    of the rounded output, a nested bottleneck tower's first input."""
     h, w_ = hw
     cin = x.shape[-1]
     k = block.conv.kernel_size[0]
     n = block.conv.out_channels
     m = out.shape[0]
     if x.dtype == torch.float32:
+        bn = _bn_args(block)
         _launched("conv", _lib().fused_net_conv(
-            x.data_ptr(), w.data_ptr(), cin, k, *_bn_args(block),
-            out.data_ptr(), m, h, w_, n, block.bn.eps, _stream(out.device)))
+            x.data_ptr(), w.data_ptr(), cin, k, *bn,
+            *(bn if act is None else _norm_args(act[1])), out.data_ptr(),
+            None if act is None else act[0].data_ptr(), m, h, w_, n,
+            block.bn.eps, _stream(out.device)))
         conv.launches += 1
+        conv.preact_launches += int(act is not None)
         return
-    launch_conv(x, w, block, hw, out, residual,
-                conv_plan(m, n, cin, k * k, _sm_count(out.device),
-                          projection=isinstance(residual, tuple)), relu)
+    bm, bn = conv_tile(m, n, cin, k * k, _sm_count(out.device),
+                       projection=isinstance(residual, tuple))
+    launch_conv(x, w, block, hw, out, residual, bm, relu, bn)
 
 
 def launch_conv(x, w, block: ConvBlock, hw, out, residual, bm: int,
-                relu: bool = True) -> None:
+                relu: bool = True, bn_tile: int = TILE_FILTERS) -> None:
     """``conv``'s launch of a block conv on the pipelined kernel's tile of
-    ``bm`` cells."""
+    ``bm`` cells by ``bn_tile`` filters."""
     h, w_ = hw
     bn = _bn_args(block)
     if residual is None:
@@ -422,11 +605,68 @@ def launch_conv(x, w, block: ConvBlock, hw, out, residual, bm: int,
         rbn, skip = _bn_args(rblock), 1
     _launched("conv", _lib().fused_net_conv_pipelined(
         x.data_ptr(), w.data_ptr(), x.shape[-1], block.conv.kernel_size[0],
-        *bn, r.data_ptr(), wr.data_ptr(), *rbn, skip, out.data_ptr(),
+        *bn, r.data_ptr(), wr.data_ptr(), *rbn, skip, out.data_ptr(), None,
         out.shape[0], h, w_, block.conv.out_channels, block.bn.eps, bm,
-        _stream(out.device)))
+        bn_tile, _stream(out.device)))
     conv.launches += 1
     conv.identity_launches += int(skip == 2)
+
+
+def conv_pre(x: torch.Tensor, w: torch.Tensor, block, hw,
+             raw: Optional[torch.Tensor] = None, act=None,
+             skip: Optional[torch.Tensor] = None) -> None:
+    """Launch a conv of a nested bottleneck tower with the pre-activation
+    epilogue, on ``conv_tile``'s tile: the conv of ``block`` (a NormConv:
+    its ``conv``, whose bias is added; its own norm is the one its input
+    already went through) over NHWC ``x`` ((M, C_in) bf16, activated), plus
+    ``skip`` ((M, N) bf16, the block's or the inner block's input: the
+    identity tile), rounded to bf16 into ``raw`` and, given ``act`` = (an
+    (M, N) bf16 tensor, the next conv's BatchNorm), relu(n(raw)) of the
+    rounded value into that tensor: the skip stream and the next conv's
+    input from one launch. Either output may be absent (None), not
+    both. A 1x1 conv is a whole layer here (taps 1, K = C_in)."""
+    h, w_ = hw
+    first = raw if raw is not None else act[0]
+    m, cin, k = first.shape[0], x.shape[-1], block.conv.kernel_size[0]
+    n = block.conv.out_channels
+    bn = (block.conv.bias.data_ptr(),) * 5
+    rbn = bn if act is None else _norm_args(act[1])
+    r = x if skip is None else skip
+    bm, bn_tile = conv_tile(m, n, cin, k * k, _sm_count(first.device))
+    _launched("conv", _lib().fused_net_conv_pipelined(
+        x.data_ptr(), w.data_ptr(), cin, k, *bn, r.data_ptr(), w.data_ptr(),
+        *rbn, 4 if skip is None else 5,
+        None if raw is None else raw.data_ptr(),
+        None if act is None else act[0].data_ptr(), m, h, w_, n,
+        0.0 if act is None else act[1].eps, bm, bn_tile,
+        _stream(first.device)))
+    conv.launches += 1
+    conv.pointwise_launches += int(k == 1)
+    conv.preact_launches += int(raw is not None and act is not None)
+
+
+def gpool(r: torch.Tensor, g: torch.Tensor, inner, hw, out) -> None:
+    """Launch a pooled inner block's pooled bias and conv2's norm: (M, R)
+    bf16 ``out`` gets relu(n(r + W p)) of the regular channels ``r`` ((M,
+    R) bf16, conv1's raw output), p the mean, the scaled mean
+    (``pool_scale``) and the max over each position's cells of the pooled
+    channels ``g`` ((M, G) bf16, rectified), W the dense weight ((R, 3G)
+    float32, read where it lives), n conv2's BatchNorm."""
+    weight = inner.gpool.dense.weight
+    if (weight.dtype != torch.float32 or not weight.is_contiguous()
+            or weight.data_ptr() % 16):
+        raise ValueError("the fused forward reads a contiguous, 16-byte "
+                         "aligned float32 pooled-bias weight")
+    m, regular = r.shape
+    cells = hw[0] * hw[1]
+    bn = inner.conv2.bn
+    _launched("gpool", _lib().fused_net_gpool(
+        g.data_ptr(), r.data_ptr(), m // cells, cells, g.shape[1], regular,
+        weight.data_ptr(), pool_scale(cells),
+        *(t.data_ptr() for t in (bn.weight, bn.bias, bn.running_mean,
+                                 bn.running_var)),
+        bn.eps, out.data_ptr(), _stream(r.device)))
+    gpool.launches += 1
 
 
 def se(x: torch.Tensor, y: torch.Tensor, block, hw, out) -> None:
@@ -467,14 +707,78 @@ def heads(x: torch.Tensor, net: PolicyValueNet, p_out, v_out) -> None:
 # Launches made from the host. A launch recorded into a CUDA graph counts
 # once, when recorded; its replays are not counted. ``identity_launches``:
 # the conv launches that added an identity block's input.
+# ``pointwise_launches``: the 1x1 convs launched as whole layers (a nested
+# bottleneck's convs down and up). ``preact_launches``: the conv launches
+# that wrote both a skip stream and its norm and ReLU (the dual-output
+# epilogue, the nested tower's stem included).
 # ``search_launches``: the packs that a search launched before its replays
 # (``FusedForward.pack_weights``), also counted in ``launches``.
 pack.launches = 0
 pack.search_launches = 0
 conv.launches = 0
 conv.identity_launches = 0
+conv.pointwise_launches = 0
+conv.preact_launches = 0
 se.launches = 0
+gpool.launches = 0
 heads.launches = 0
+
+
+def _nested_cuda(net: PolicyValueNet, x: torch.Tensor, xa: torch.Tensor,
+                 weights, hw) -> torch.Tensor:
+    """The nested bottleneck tower's launches after the stem, whose raw
+    output ``x`` and its first block's activated input ``xa`` ((M, C) bf16)
+    are given; ``weights`` yields each conv's packed weight in
+    ``trunk_convs`` order. Per block: the 1x1 conv down writes the inner
+    stream a and its activation; each inner block's conv1 writes only its
+    activation (folded as a classic epilogue), or in a pooled one conv1's
+    raw regular channels, the pooled branch's conv its rectified channels
+    and ``gpool`` conv2's input; conv2 adds a and writes the next inner
+    stream and its activation (the second: its activation alone); the 1x1
+    conv up adds x and writes the next x and its activation (the last
+    block: the activation alone, the trunk norm's, for the heads). Returns
+    that activation."""
+    m = x.shape[0]
+
+    def new(channels):
+        return torch.empty(m, channels, dtype=torch.bfloat16,
+                           device=x.device)
+
+    for i, block in enumerate(net.blocks):
+        last = i + 1 == len(net.blocks)
+        after = net.trunk_norm if last else net.blocks[i + 1].pre.bn
+        a, u = new(block.pre.conv.out_channels), new(
+            block.pre.conv.out_channels)
+        conv_pre(xa, next(weights), block.pre, hw, raw=a,
+                 act=(u, block.inner[0].conv1.bn))
+        for j, inner in enumerate(block.inner):
+            w1 = next(weights)
+            if inner.gpool is not None:
+                r = new(inner.conv1.conv.out_channels)
+                g = new(inner.gpool.conv.out_channels)
+                conv_pre(u, w1, inner.conv1, hw, raw=r)
+                conv(u, next(weights), inner.gpool, hw, g)
+                t = new(inner.conv1.conv.out_channels)
+                gpool(r, g, inner, hw, t)
+            else:
+                t = new(inner.conv1.conv.out_channels)
+                conv(u, w1, SimpleNamespace(conv=inner.conv1.conv,
+                                            bn=inner.conv2.bn), hw, t)
+            w2 = next(weights)
+            if j + 1 < len(block.inner):
+                b, u = new(a.shape[1]), new(a.shape[1])
+                conv_pre(t, w2, inner.conv2, hw, raw=b,
+                         act=(u, block.inner[j + 1].conv1.bn), skip=a)
+                a = b
+            else:
+                u = new(a.shape[1])
+                conv_pre(t, w2, inner.conv2, hw, act=(u, block.post.bn),
+                         skip=a)
+        out, xa = (None if last else new(x.shape[1])), new(x.shape[1])
+        conv_pre(u, next(weights), block.post, hw, raw=out, act=(xa, after),
+                 skip=x)
+        x = out
+    return xa
 
 
 # The forwards recorded into the CUDA graph being captured, while a
@@ -568,6 +872,11 @@ class FusedForward:
             raise ValueError(f"the se kernel does not take gates of "
                              f"{net.cfg.filters} filters at ratio "
                              f"{net.cfg.se_ratio}")
+        if not nested_fits(net):
+            raise ValueError(
+                f"the fused forward takes nested bottleneck widths that are "
+                f"multiples of {K_STEP}; got mid {net.cfg.mid_filters}, "
+                f"pooled {net.cfg.gpool_filters}")
         obs = obs.contiguous()
         capturing = torch.cuda.is_current_stream_capturing()
         table, rows, length = self._table(obs.device, capturing)
@@ -589,8 +898,14 @@ class FusedForward:
         m = bsz * h * w
         filters = net.cfg.filters
         x = torch.empty(m, filters, dtype=torch.bfloat16, device=obs.device)
-        conv(obs, next(weights), net.stem, (h, w), x)
-        for block in net.blocks:
+        if nested(net):
+            xa = torch.empty_like(x)
+            conv(obs, next(weights), net.stem, (h, w), x,
+                 act=(xa, net.blocks[0].pre.bn))
+            x = _nested_cuda(net, x, xa, weights, (h, w))
+        else:
+            conv(obs, next(weights), net.stem, (h, w), x)
+        for block in net.blocks if not nested(net) else ():
             y = torch.empty_like(x)
             conv(x, next(weights), block.conv1, (h, w), y)
             out = torch.empty_like(x)

@@ -87,7 +87,8 @@ def init_train_state(num_actions: int, cfg: ModelConfig,
         for module in net.modules():
             if isinstance(module, (torch.nn.Conv2d, torch.nn.Linear)):
                 _lecun_normal_(module.weight, generator)
-                module.bias.zero_()
+                if module.bias is not None:  # a pooled bias's dense has none
+                    module.bias.zero_()
     return new_train_state(net)
 
 

@@ -532,7 +532,7 @@ PIPELINED_CASES = {
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(PIPELINED_CASES))
 def test_pipelined_conv_matches_plain(case):
-    """One block conv layer through the pipelined kernel on ``conv_plan``'s
+    """One block conv layer through the pipelined kernel on ``conv_tile``'s
     tile against the plain layer, within phase 26's bound of a layer
     (``FUSED_LAYER_STEPS`` bf16 steps of its magnitude), one conv launch
     counted."""
@@ -568,3 +568,33 @@ def test_se_forward_matches_module_path_and_repeats(filters, tile):
         2 * chip_smoke.FUSED_SE_LOGIT_LIMIT), got
     assert got["fused_module_value_gap"] <= (
         2 * chip_smoke.FUSED_SE_VALUE_LIMIT), got
+
+
+@pytest.mark.cuda
+def test_nbt_forward_matches_plain_and_repeats():
+    """KataGo's b18c384nbt tower (18 nested bottleneck blocks, 384 / 192 /
+    64 channels, 3 pooled) at B=256 through the fused forward: each launch
+    within phase 26's bound of a layer of its plain layer on its own inputs
+    (the stem's two outputs, the 1x1 and 3x3 pre-activation convs raw and
+    activated, with and without the identity tile, an inner conv1 folded,
+    the pooled branch's 64-filter conv, ``gpool``), the forward within
+    phase 26's bounds of the plain version and within twice them of the
+    module path, two forwards bit-equal, one forward's launches counted:
+    112 convs, 36 of them 1x1, 54 dual-output, 3 ``gpool``, no plain
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+    got = chip_smoke.nbt_forward_check(torch.device("cuda"), 256)
+    assert got["repeat_equal"], got
+    assert (got["conv_launches"], got["pointwise_launches"],
+            got["preact_launches"], got["gpool_launches"],
+            got["plain_calls"]) == (112, 36, 54, 3, 0), got
+    assert max(got["layers"].values()) <= chip_smoke.FUSED_LAYER_STEPS, got
+    assert len(got["layers"]) == 11, got
+    assert got["logit_gap"] <= chip_smoke.FUSED_NBT_LOGIT_LIMIT, got
+    assert got["value_gap"] <= chip_smoke.FUSED_NBT_VALUE_LIMIT, got
+    assert got["fused_module_logit_gap"] <= (
+        2 * chip_smoke.FUSED_NBT_LOGIT_LIMIT), got
+    assert got["fused_module_value_gap"] <= (
+        2 * chip_smoke.FUSED_NBT_VALUE_LIMIT), got

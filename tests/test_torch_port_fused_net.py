@@ -263,8 +263,16 @@ def _epilogue(z, bn, n, eps):
     return z * scale + ((bias - mean) * scale + beta)
 
 
+def _activated(y, bn, n, eps):
+    """relu(n(y)) of rounded (M, n) rows ``y``, the norm's pointers as the
+    entry points take them (its bias slot unread)."""
+    _, gamma, beta, mean, var = (_at(a, (n,), torch.float32) for a in bn)
+    scale = gamma / torch.sqrt(var + eps)
+    return torch.relu(y.float() * scale + ((-mean) * scale + beta))
+
+
 class _StandIns:
-    """csrc/fused_net.cu's five entry points in PyTorch, with the same
+    """csrc/fused_net.cu's six entry points in PyTorch, with the same
     arguments: pointers as integers, read and written in place. Each call
     is recorded with its shape arguments."""
 
@@ -288,24 +296,49 @@ class _StandIns:
 
     def fused_net_conv(self, x, w, C, ks, *args):
         # The stem: float32 observations, no skip (the entry point takes
-        # neither a dtype, a skip nor a tile).
-        bn = args[:5]
-        out, M, H, W, N, eps, stream = args[5:]
-        self.calls.append(("conv", C, ks))
+        # neither a dtype, a skip nor a tile); with out2, its output's next
+        # norm and ReLU too.
+        bn, nbn = args[:5], args[5:10]
+        out, out2, M, H, W, N, eps, stream = args[10:]
+        self.calls.append(("conv", C, ks) if out2 is None
+                          else ("conv", C, ks, "act"))
         self.weights.append(w)
         y = _epilogue(self._sums(_at(x, (M, C), torch.float32), w, C, ks, H,
                                  W, N), bn, N, eps)
-        _at(out, (M, N), torch.bfloat16).copy_(torch.relu(y))
+        raw = _at(out, (M, N), torch.bfloat16)
+        raw.copy_(torch.relu(y))
+        if out2 is not None:
+            _at(out2, (M, N), torch.bfloat16).copy_(
+                _activated(raw, nbn, N, eps))
         return 0
 
     def fused_net_conv_pipelined(self, x, w, C, ks, *args):
         bn, (r, wr), rbn = args[:5], args[5:7], args[7:12]
-        residual, out, M, H, W, N, eps, bm, stream = args[12:]
+        residual, out, out2, M, H, W, N, eps, bm, width, stream = args[12:]
         self.calls.append(("conv_pipelined", C, ks, residual, bm))
         self.weights.append(w)
-        # The tile ``conv_plan`` gives the shape on an H100's 132 SMs.
-        assert bm == fused_net.conv_plan(M, N, C, ks * ks, 132,
-                                         projection=residual == 1)
+        # The tile ``conv_tile`` gives the shape on an H100's 132 SMs: for
+        # outputs that are a multiple of 128 filters, 128 filters wide.
+        assert (bm, width) == fused_net.conv_tile(M, N, C, ks * ks, 132,
+                                                  projection=residual == 1)
+        if N % fused_net.TILE_FILTERS == 0:
+            assert width == fused_net.TILE_FILTERS
+        if residual >= 4:
+            # The pre-activation epilogue: the conv's bias, the identity
+            # tile (5), the rounded sum and its next norm and ReLU.
+            assert out is not None or out2 is not None
+            y = self._sums(_at(x, (M, C), torch.bfloat16), w, C, ks, H, W,
+                           N) + _at(bn[0], (N,), torch.float32)
+            if residual == 5:
+                y = y + _at(r, (M, N), torch.bfloat16).float()
+            raw = y.to(torch.bfloat16)
+            if out is not None:
+                _at(out, (M, N), torch.bfloat16).copy_(raw)
+            if out2 is not None:
+                _at(out2, (M, N), torch.bfloat16).copy_(
+                    _activated(raw, rbn, N, eps))
+            return 0
+        assert out2 is None
         y = _epilogue(self._sums(_at(x, (M, C), torch.bfloat16), w, C, ks, H,
                                  W, N), bn, N, eps)
         if residual == 1:
@@ -327,6 +360,19 @@ class _StandIns:
                 + _at(b2, (2 * C,), torch.float32)).chunk(2, dim=1)
         _at(out, (B, HW, C), torch.bfloat16).copy_(torch.relu(
             xt + torch.sigmoid(g)[:, None] * yt + o[:, None]))
+        return 0
+
+    def fused_net_gpool(self, g, r, B, HW, G, R, wg, scale, gamma, beta,
+                        mean, var, eps, out, stream):
+        self.calls.append(("gpool", B, HW, G, R))
+        gt = _at(g, (B, HW, G), torch.bfloat16).float()
+        mean_g = gt.sum(dim=1) / HW
+        pooled = torch.cat([mean_g, mean_g * scale, gt.amax(dim=1)], dim=1)
+        bias = pooled @ _at(wg, (R, 3 * G), torch.float32).T
+        y = _at(r, (B, HW, R), torch.bfloat16).float() + bias[:, None]
+        _at(out, (B, HW, R), torch.bfloat16).copy_(_activated(
+            y.view(B * HW, R), (gamma, gamma, beta, mean, var), R,
+            eps).view(B, HW, R))
         return 0
 
     @staticmethod
@@ -368,10 +414,10 @@ def stand_ins(monkeypatch):
 def _block_calls(m: int, depth: int, skip: int):
     """The stand-ins' records of a WIDE net's block convs at M = ``m``: each
     block's conv1, then its conv2 with the skip (1 projection, 2 identity),
-    on ``conv_plan``'s tiles."""
-    plain = fused_net.conv_plan(m, WIDE, WIDE, 9, 132)
-    with_skip = fused_net.conv_plan(m, WIDE, WIDE, 9, 132,
-                                    projection=skip == 1)
+    on ``conv_tile``'s tiles."""
+    plain = fused_net.conv_tile(m, WIDE, WIDE, 9, 132)[0]
+    with_skip = fused_net.conv_tile(m, WIDE, WIDE, 9, 132,
+                                    projection=skip == 1)[0]
     return [call for _ in range(depth) for call in (
         ("conv_pipelined", WIDE, 3, 0, plain),
         ("conv_pipelined", WIDE, 3, skip, with_skip))]
@@ -384,7 +430,7 @@ def test_launch_sequence_and_counters(stand_ins, shape, batch, projection):
     """The wrapper's launches for CUDA tensors, run on the CPU through the
     stand-ins, for a net of 64 filters with projections or identity skips:
     the stem on its kernel, every block conv on the pipelined kernel with
-    ``conv_plan``'s tile (the stand-in holds each to it). The result is the
+    ``conv_tile``'s tile (the stand-in holds each to it). The result is the
     plain version's and, with projections, the Flax net's within the bf16
     bounds above; each counter counts its launches."""
     if projection:
@@ -419,6 +465,86 @@ def test_launch_sequence_and_counters(stand_ins, shape, batch, projection):
         _assert_matches_flax(got, refs, "bfloat16")
     # The plain version's arithmetic: float32 sums of one conv in another
     # order may move a layer's bf16 rounding by one step (2**-8 relative).
+    assert _gap(got, want) < 1e-2
+    assert _gap(got_again, got) == 0.0
+
+
+def _nested_net(shape: str, seed: int = 0):
+    """An eval-mode bf16 nested bottleneck net whose widths take N1 (128
+    filters, mid 128, 64 of them pooled in block 1 of 2), every parameter
+    and running statistic drawn as ``_net`` draws them."""
+    actions, hw, channels = SHAPES[shape]
+    cfg = ModelConfig(depth=2, filters=128, value_hidden=32,
+                      residual_projection=False, mid_filters=128,
+                      gpool_filters=64, gpool_blocks=(1,))
+    net = PolicyValueNet(actions, cfg, channels, hw)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in list(net.named_parameters()) + list(
+                net.named_buffers()):
+            if name.endswith("running_var"):
+                t.copy_(torch.rand(t.shape, generator=gen) * 1.5 + 0.25)
+            elif name.endswith(("bn.weight", "norm.weight")):
+                t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
+            elif t.dim() > 1:
+                t.copy_(torch.randn(t.shape, generator=gen)
+                        / t[0].numel() ** 0.5)
+            else:
+                t.copy_(torch.randn(t.shape, generator=gen) * 0.2)
+    return net.eval()
+
+
+@pytest.mark.parametrize("batch", [3, 64])
+@pytest.mark.parametrize("shape", ["c4", "chess"])
+def test_nested_launch_sequence_and_counters(stand_ins, shape, batch):
+    """A nested bottleneck net's launches through the stand-ins: the stem
+    with its second output, then per block the 1x1 conv down (raw and
+    activation), each inner block's conv1 (in the pooled block: its
+    regular channels raw, the pooled branch's conv, the gpool launch), its
+    conv2 adding the inner stream, the 1x1 conv up adding the block input
+    (the last block: its activation alone), each on ``conv_tile``'s tile;
+    the result the plain version's, two forwards equal, each counter
+    counting its launches."""
+    net, obs = _nested_net(shape), _obs(shape, batch)
+    counters = (fused_net.conv.launches, fused_net.conv.pointwise_launches,
+                fused_net.conv.preact_launches, fused_net.gpool.launches,
+                fused_net.conv.identity_launches, fused_net.heads.launches)
+    forward = fused_net.FusedForward(net)
+    with torch.inference_mode():
+        got = forward._forward_cuda(obs)
+        got_again = forward._forward_cuda(obs)
+        want = fused_net.forward_plain(net, obs)
+    counts = tuple(c - before for c, before in zip(
+        (fused_net.conv.launches, fused_net.conv.pointwise_launches,
+         fused_net.conv.preact_launches, fused_net.gpool.launches,
+         fused_net.conv.identity_launches, fused_net.heads.launches),
+        counters))
+    # Per forward: 1 + 6 x 2 + 1 convs, 2 x 2 pointwise, 1 + 2 + 2 + 1
+    # dual outputs, one gpool.
+    assert counts == (2 * 14, 2 * 4, 2 * 6, 2, 0, 2)
+    m = obs.shape[0] * obs.shape[1] * obs.shape[2]
+
+    def tile(n, cin, taps):
+        return fused_net.conv_tile(m, n, cin, taps, 132)[0]
+
+    channels = SHAPES[shape][2]
+    block1 = [("conv_pipelined", 128, 1, 4, tile(128, 128, 1)),
+              ("conv_pipelined", 128, 3, 4, tile(64, 128, 9)),
+              ("conv_pipelined", 128, 3, 0, tile(64, 128, 9)),
+              ("gpool", obs.shape[0], m // obs.shape[0], 64, 64),
+              ("conv_pipelined", 64, 3, 5, tile(128, 64, 9)),
+              ("conv_pipelined", 128, 3, 0, tile(128, 128, 9)),
+              ("conv_pipelined", 128, 3, 5, tile(128, 128, 9)),
+              ("conv_pipelined", 128, 1, 5, tile(128, 128, 1))]
+    block2 = [block1[0], block1[5], block1[6], block1[5], block1[6],
+              block1[7]]
+    rows = fused_net.pack_layout(net)[0]
+    size = fused_net.PACK_TILE
+    tiles = max(-(-cout // size) * (fused_net.padded_depth(cin, taps) // size)
+                for _, _, cout, cin, taps in rows)
+    one = ([("pack", len(rows), tiles), ("conv", channels, 3, "act")]
+           + block1 + block2 + [("heads", 128, 2, 1)])
+    assert stand_ins.calls == one + one
     assert _gap(got, want) < 1e-2
     assert _gap(got_again, got) == 0.0
 
@@ -719,10 +845,9 @@ def test_conv_plan_by_shape(case):
     """The pipelined kernel's tile by shape, and its grid: every output
     cell x filter in exactly one CTA's tile, and no CTA without cells."""
     _, m, n, cin, taps, projection, want = case
-    bm = fused_net.conv_plan(m, n, cin, taps, 132, projection=projection)
-    assert bm == want
+    bm, bn = fused_net.conv_tile(m, n, cin, taps, 132, projection=projection)
+    assert (bm, bn) == (want, fused_net.TILE_FILTERS)
     gx, gy = fused_net.conv_grid(bm, m, n)
-    bn = fused_net.TILE_FILTERS
     covered = np.zeros((gx * bm, gy * bn), dtype=np.int8)
     for bx in range(gx):
         for by in range(gy):
@@ -786,7 +911,7 @@ def test_launch_sequence_and_counters_se(stand_ins, shape, batch):
     assert len(rows) == 1 + 2 * depth
     cells = math.prod(SHAPES[shape][1])
     m = batch * cells
-    plain = fused_net.conv_plan(m, WIDE, WIDE, 9, 132)
+    plain = fused_net.conv_tile(m, WIDE, WIDE, 9, 132)[0]
     assert stand_ins.calls[1:-1] == [("conv", 4, 3)] + [
         call for _ in range(depth) for call in (
             ("conv_pipelined", WIDE, 3, 0, plain),

@@ -397,10 +397,15 @@ def test_max_game_plies():
 
 def _without_port_keys(tree: dict) -> dict:
     """A config tree without the port's own ``model.residual_projection``
-    (default True, the JAX net's block) and ``model.se_ratio`` (default 0,
-    no squeeze-excitation gate)."""
+    (default True, the JAX net's block), ``model.se_ratio`` (default 0,
+    no squeeze-excitation gate) and the nested bottleneck tower's
+    ``model.mid_filters``, ``gpool_filters`` and ``gpool_blocks`` (default
+    0, 0 and none: the classic blocks)."""
     assert tree["model"].pop("residual_projection") is True
     assert tree["model"].pop("se_ratio") == 0
+    assert tree["model"].pop("mid_filters") == 0
+    assert tree["model"].pop("gpool_filters") == 0
+    assert list(tree["model"].pop("gpool_blocks")) == []
     return tree
 
 
